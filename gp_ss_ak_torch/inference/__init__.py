@@ -1,0 +1,27 @@
+"""Inference: exact Gaussian GP regression (serving path)."""
+
+from gp_ss_ak_torch.inference.gaussian import (
+    Posterior,
+    factorize,
+    nlml,
+    posterior_mean_var,
+    predict,
+)
+from gp_ss_ak_torch.inference.likelihoods import (
+    LIK_GAUSSIAN,
+    LIK_WARPGAUSS,
+    Gaussian,
+    make_likelihood,
+)
+
+__all__ = [
+    "Posterior",
+    "factorize",
+    "nlml",
+    "posterior_mean_var",
+    "predict",
+    "Gaussian",
+    "make_likelihood",
+    "LIK_GAUSSIAN",
+    "LIK_WARPGAUSS",
+]

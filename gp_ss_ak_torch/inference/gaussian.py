@@ -1,0 +1,124 @@
+"""Exact Gaussian GP regression: NLML, posterior, prediction.
+
+Port of gp_ss_ak_tpu/inference/gaussian.py for the plain Gaussian
+likelihood, forward only (the serving path). The reference reaches
+these quantities through Laplace/IRLS iteration (GP_Utils.cpp:180-381);
+for a Gaussian likelihood that converges to exact GP regression in one
+Newton step, so the closed form is computed directly with a single
+Cholesky of A = K + sn2 I:
+
+  L = 1/2 y^T alpha + 1/2 log det(K + sn2 I) + N/2 log 2pi
+
+A failed Cholesky surfaces as NaN in the objective (the reference's
+Chol_fail -> NaN protocol, GP_Utils.cpp:884-887, 1145-1146), via
+`ops.chol.cholesky`.
+
+Not ported yet: the warped likelihood (warped_predictive_mix), the
+jitter-retry `robust` factorization (utils/psd.py) and the QW custom
+backward (`_quad_logdet`), which belong to the training path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from gp_ss_ak_torch.inference.likelihoods import Gaussian
+from gp_ss_ak_torch.kernels.distance import highest_precision
+from gp_ss_ak_torch.ops.chol import cholesky
+from gp_ss_ak_torch.ops.fused import fused_cross_gram, maybe_fused_A
+
+
+class Posterior(NamedTuple):
+    """Derived GP state (the reference recomputes this on model load —
+    model files store only hyperparameters, GP_Utils.cpp:1360-1390)."""
+
+    alpha: torch.Tensor  # (n,)   (K + sn2 I)^-1 y
+    chol: torch.Tensor   # (n, n) lower Cholesky of K + sn2 I
+    gy: torch.Tensor     # (n,)   regression targets
+    lgpy: torch.Tensor   # (n,)   log g'(y): zeros for plain Gaussian
+    linv: Optional[torch.Tensor] = None   # optional (n, n) L^-1, set by
+    # serve.Predictor: turns each batch's triangular solve into a GEMM
+
+
+def _gram(kernel, params, X, jitter: float = 0.0):
+    K = kernel.matrix(params, X, X, same=True)
+    if jitter:
+        K = K + jitter * torch.eye(X.shape[0], dtype=K.dtype,
+                                   device=K.device)
+    return K
+
+
+def factorize(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
+              jitter: float = 0.0) -> Posterior:
+    """Build alpha and the Cholesky factor of A = K + sn2 I.
+
+    The flagship ExpAns+Bias model builds A through the fused Gram
+    kernel (ops/fused.py); other kernels use the generic torch Gram."""
+    n = X.shape[0]
+    gy, lgpy = likelihood.effective_target(lik_hypers, y)
+    sn2 = likelihood.noise_variance(lik_hypers)
+    with highest_precision():
+        A = maybe_fused_A(kernel, params, sn2, X, jitter)
+        if A is None:
+            K = _gram(kernel, params, X, jitter)
+            A = K + sn2 * torch.eye(n, dtype=K.dtype, device=K.device)
+        L = cholesky(A)  # all NaN on failure -> NaN objective
+        del A
+        alpha = torch.cholesky_solve(gy[:, None], L)[:, 0]
+    return Posterior(alpha=alpha, chol=L, gy=gy, lgpy=lgpy)
+
+
+def nlml(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
+         jitter: float = 0.0) -> torch.Tensor:
+    """Negative log marginal likelihood (the reference prints it as
+    "-logL", Opt_pars.cpp:282)."""
+    n = X.shape[0]
+    const = 0.5 * n * math.log(2.0 * math.pi)
+    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter)
+    half_logdet = torch.sum(torch.log(torch.diagonal(post.chol)))
+    fit = 0.5 * torch.dot(post.gy, post.alpha)
+    return fit + half_logdet + const - torch.sum(post.lgpy)
+
+
+def posterior_mean_var(kernel, params, lik_hypers, X, post: Posterior,
+                       Xstar, likelihood=Gaussian(), full_cov: bool = False):
+    """Latent+noise predictive mean/variance at Xstar.
+
+    Mirrors posteriorMeanVar (GP_Utils.cpp:943-1043): cross-kernel,
+    mu = kX^T alpha, whitened solve for the variance, clamp at 0 BEFORE
+    the observation noise is added. The flagship cross-Gram goes
+    through the fused kernel (ops/fused.py)."""
+    with highest_precision():
+        kX = fused_cross_gram(kernel, params, X, Xstar)
+        if kX is None:
+            kX = kernel.matrix(params, X, Xstar, same=False)   # (n, m)
+        mu = kX.T @ post.alpha
+        kdiag = kernel.diag(params, Xstar)
+        if post.linv is not None:
+            v = post.linv @ kX
+        else:
+            v = torch.linalg.solve_triangular(post.chol, kX, upper=False)
+        if full_cov:
+            Kss = kernel.matrix(params, Xstar, Xstar, same=True)
+            cov = Kss - v.T @ v
+            var = torch.clamp_min(torch.diagonal(cov), 0.0)
+        else:
+            var = torch.clamp_min(kdiag - torch.sum(v * v, dim=0), 0.0)
+    sn2 = likelihood.noise_variance(lik_hypers)
+    var = var + sn2
+    if full_cov:
+        eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+        return mu, var, cov + sn2 * eye
+    return mu, var
+
+
+def predict(kernel, params, lik_hypers, X, y, Xstar, likelihood=Gaussian(),
+            jitter: float = 0.0, full_cov: bool = False):
+    """One-shot factorize + predict (the reference's test-mode flow,
+    gp_ss_ak.cpp:382-409: load hypers, rebuild alpha/chol, predict)."""
+    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter)
+    return posterior_mean_var(kernel, params, lik_hypers, X, post, Xstar,
+                              likelihood, full_cov)
