@@ -5,13 +5,24 @@
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
-  2. build the hand-written kernel K1 (gp_ss_ak_torch/csrc/gram.cu);
+  2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu) and
+     K3 (csrc/matmat.cu) into one library, one nvcc per source;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
-  4. the golden fixture (tests/golden) through K1 in float64;
-  5. the main path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
+  4. K3 against its plain version in float64, at ragged sizes and at the
+     matrix-free path's shapes, with a TF32 control that the same gate
+     must reject, plus timings;
+  5. the golden fixture (tests/golden) through K1 in float64;
+  6. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
      float32 on a synthetic ore body, N_train = 16384, N_test = 4096;
-  6. serving: one `serve.Predictor`, then 8 requests of 512 queries.
+  7. dense serving: one `serve.Predictor`, then 8 requests of 512
+     queries, and its setup split;
+  8. the matrix-free `serve.IterativePredictor` (float32) against the
+     dense Predictor in float64 on the same N = 16384 case;
+  9. the matrix-free path: the same CLI call with the default
+     `--engine auto` at N_train = 65536, N_test = 1024, which must pick
+     the iterative server; then one IterativePredictor serving 4
+     requests of 256 queries, and its setup split.
 The line before the last is the JSON kernel report; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 when no CUDA device is available or the package is missing.
@@ -35,14 +46,28 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
+SIGMA, BIAS = 0.32626754572075006, 0.16293397312977825   # golden model
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 N_TRAIN, N_TEST = 16384, 4096   # N_TRAIN = the dense engine's DENSE_MAX_N
 REQUESTS, REQUEST_SIZE = 8, 512
+# the matrix-free path: past the CLI's ITERATIVE_MIN_N = 32768
+N_ITER_TRAIN, N_ITER_TEST = 65536, 1024
+ITER_REQUESTS, ITER_REQUEST_SIZE = 4, 256
 SN2 = 0.016                     # the reference's default noise variance
 # K1 tolerances, relative to the Gram's scale s2 + bias
 TOL_F64 = 1e-10                 # kernel vs plain, both float64
 TOL_F32 = 1e-5                  # float32 kernel vs plain in float64
+# K3 per column b, float32 kernel vs plain in float64:
+# max |dY[:, b]| <= TOL_K3 * (s2 + bias) * ||V[:, b]||_1.
+# Set from readings on an H100 80GB HBM3 at 700 W, seed 0: the kernel's
+# worst column sits at 5.1e-8 (N = 65536, B = 1024; float32 summation
+# error grows like n, as ||V||_1 does), and a TF32 product (the control
+# below, which the gate must fail) at no less than 4.7e-7 (N = 65536,
+# B = 1; its error grows like sqrt(n)), so the limit sits ~3x from each.
+TOL_K3 = 1.5e-7
+ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
+ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
 MEAN_TOL = 1e-3                 # Predictor vs CLI means, times std(y)
 
@@ -107,10 +132,12 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: K1 loaded in {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {_build.build_info.get('seconds', 0.0):.3f} s)")
+    print(f"build: K1 and K3 loaded in {time.perf_counter() - t0:.3f} s "
+          f"(nvcc, one process per source, then link: "
+          f"{_build.build_info.get('seconds', 0.0):.3f} s)")
     for line in _build.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
             print("  ptxas:", line.strip())
 
 
@@ -120,7 +147,7 @@ def phase_k1(device, seed: int, cases=None, time_shapes=True):
 
     from gp_ss_ak_torch.ops import pairwise
 
-    sigma, bias = 0.32626754572075006, 0.16293397312977825  # golden model
+    sigma, bias = SIGMA, BIAS
     scale = sigma * sigma + bias
     if cases is None:
         cases = [(1000, None, 3), (1000, 333, 3), (1000, None, 4),
@@ -185,6 +212,101 @@ def phase_k1(device, seed: int, cases=None, time_shapes=True):
             if dtype == torch.float32 and m is None:
                 report.update(ms=ms, plain_ms=plain_ms)
             del X, Y
+    return report
+
+
+def _round_tf32(t):
+    """float32 values rounded to nearest with TF32's 10 mantissa bits."""
+    import torch
+
+    bits = t.float().contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def tf32_control(Xk, scal, V):
+    """K3's function as a TF32 product gives it: the float32 Gram entries
+    and V rounded to TF32, the products summed in float64. The K3 gate
+    must fail it."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    n, chunk = Xk.shape[0], matvec.PLAIN_CHUNK
+    X, s2, V64 = Xk.double(), scal[0].double(), V.double()
+    Vt = _round_tf32(V).double()
+    Y = torch.empty_like(V64)
+    for s in range(0, n, chunk):
+        K = s2 * torch.exp(-torch.cdist(X[s:s + chunk], X))
+        K.diagonal(offset=s).fill_(s2)
+        Y[s:s + chunk] = _round_tf32(K).double() @ Vt
+        del K
+    return Y + BIAS * V64.sum(dim=0, keepdim=True) + SN2 * V64
+
+
+def phase_k3(device, seed: int):
+    """K3 vs its plain version in float64 on the same inputs, a TF32
+    control that the same gate must reject, then CUDA event times at the
+    matrix-free path's shapes; returns the report."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    scale = SIGMA * SIGMA + BIAS
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def case(n, b, d):
+        X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
+        V = torch.randn(n, b, generator=g, device=device)
+        Xk, scal = matvec.operator_arrays(X, SIGMA)
+        return Xk, scal, V
+
+    cases = [(n, b, d) for n in (1000, 4097) for b in (1, 7, 64, 1024)
+             for d in (3, 4)]
+    cases += [(N_ITER_TRAIN, 1, 3), (N_ITER_TRAIN, 1024, 3)]
+    worst, worst_ratio, ctl_ratio = 0.0, 0.0, float("inf")
+    for n, b, d in cases:
+        Xk, scal, V = case(n, b, d)
+        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+        ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), BIAS,
+                                           SN2, V.double())
+        err = (Y.double() - ref).abs().max(dim=0).values
+        lim = TOL_K3 * scale * V.double().abs().sum(dim=0)
+        ratio = float((err / lim).max())
+        cerr = (tf32_control(Xk, scal, V) - ref).abs().max(dim=0).values
+        cratio = float((cerr / lim).max())
+        print(f"K3 n={n} B={b} d={d}: max |kernel-plain64| "
+              f"{float(err.max()):.3e}, worst column at {ratio:.3e} of its "
+              f"limit {TOL_K3}*(s2+bias)*||V[:,b]||_1; TF32 control "
+              f"{float(cerr.max()):.3e}, worst column at {cratio:.3e}")
+        _check(bool((err <= lim).all()), f"K3 disagrees at n={n} B={b} "
+               f"d={d}")
+        _check(bool((cerr > lim).any()), f"K3 gate too loose: a TF32 "
+               f"product passes it at n={n} B={b} d={d}")
+        worst = max(worst, float(err.max()))
+        worst_ratio = max(worst_ratio, ratio)
+        ctl_ratio = min(ctl_ratio, cratio)
+        del Y, ref
+    print(f"K3: worst error {worst:.3e}, worst column at {worst_ratio:.3e} "
+          f"of its limit; the TF32 control's worst column at no less than "
+          f"{ctl_ratio:.3e} of it")
+
+    report = {"max_abs_err": worst}
+    bias_t, sn2_t = (torch.tensor(v, device=device) for v in (BIAS, SN2))
+    Xk, scal, _ = case(N_ITER_TRAIN, 1, 3)
+    n = N_ITER_TRAIN
+    for b, iters in ((1, 20), (256, 5), (1024, 3)):
+        V = torch.randn(n, b, generator=g, device=device)
+        ms = time_ms(lambda: matvec.streamed_matmat(
+            Xk, scal, bias_t, sn2_t, V), warmup=1, iters=iters)
+        plain_ms = time_ms(lambda: matvec.streamed_matmat_plain(
+            Xk, scal, bias_t, sn2_t, V), warmup=1, iters=min(iters, 5))
+        pairs = n * n / (ms * 1e-3) / 1e9
+        tflops = 2.0 * n * n * b / (ms * 1e-3) / 1e12
+        print(f"K3 time N={n} B={b} d=3 f32: kernel {ms:.4f} ms "
+              f"({pairs:.1f} Gpairs/s, {tflops:.2f} TFLOP/s of K.V), "
+              f"plain {plain_ms:.4f} ms")
+        report[b] = (ms, plain_ms)
+    report["ms"], report["plain_ms"] = report[1024]
     return report
 
 
@@ -387,6 +509,122 @@ def phase_setup_split(server):
           f"potrf {chol_ms:.4f} ms, L^-1 {linv_ms:.4f} ms")
 
 
+def _load_case(device, dtype, train: str, test: str, model_path: str):
+    from gp_ss_ak_torch.data import Statistics, apply, read_data
+    from gp_ss_ak_torch.model import load_model
+
+    model = load_model(model_path).to(dtype, device)
+    stats = Statistics.load(model_path + "_Statistics.txt")
+    Xtr, ytr = read_data(train)
+    Xt, yt = read_data(test)
+    Xtrs, ytrs = apply(stats, Xtr, ytr)
+    return model, stats, Xtrs, ytrs, apply(stats, Xt), yt
+
+
+def phase_iter_vs_dense(device, train: str, test: str, model_path: str):
+    """IterativePredictor (float32) vs the dense Predictor in float64 on
+    the same 512 queries of the N = 16384 case."""
+    import torch
+
+    from gp_ss_ak_torch.serve import IterativePredictor, Predictor
+
+    model, _, Xtrs, ytrs, Xts, _ = _load_case(
+        device, torch.float32, train, test, model_path)
+    q = Xts[:512]
+    t0 = time.perf_counter()
+    it = IterativePredictor(model, Xtrs, ytrs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mu_i, var_i = it(q, batch_size=512)
+    dense = Predictor(model.to(torch.float64, device), Xtrs, ytrs,
+                      precompute_inverse=False)
+    mu_d, var_d = dense(q)
+    del dense
+    err_mu = float(np.max(np.abs(mu_i - mu_d)))
+    tol_mu = ITER_MEAN_TOL * float(np.std(ytrs))
+    rel_var = float(np.max(np.abs(var_i - var_d) / var_d))
+    print(f"iterative vs dense f64 (N={Xtrs.shape[0]}, 512 queries, rank "
+          f"{it.precond_rank}): max |mu diff| {err_mu:.3e} (tol "
+          f"{tol_mu:.3e}), max var rel diff {rel_var:.3e} (tol "
+          f"{ITER_VAR_RTOL}); setup {setup_s:.3f} s, setup_cg_iters "
+          f"{it.setup_cg_iters}, last_cg_iters {it.last_cg_iters}")
+    _check(bool(np.all(np.isfinite(mu_i)) and np.all(var_i > 0)),
+           "iterative: non-finite mean or var <= 0")
+    _check(err_mu <= tol_mu, "iterative means disagree with dense f64")
+    _check(rel_var <= ITER_VAR_RTOL,
+           "iterative variances disagree with dense f64")
+
+
+def phase_iter_serve(device, train: str, test: str, model_path: str,
+                     yh_cli, k3_ms: float):
+    """One IterativePredictor, then ITER_REQUESTS requests of
+    ITER_REQUEST_SIZE queries; its means against the CLI's. k3_ms: K3's
+    time for one pass at the request's width, for the K3 share."""
+    import torch
+
+    from gp_ss_ak_torch.data import unapply_y
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    model, stats, Xtrs, ytrs, Xts, yt = _load_case(
+        device, torch.float32, train, test, model_path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = IterativePredictor(model, Xtrs, ytrs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    size = ITER_REQUEST_SIZE
+    lat, mus, iters = [], [], []
+    for k in range(ITER_REQUESTS):
+        q = Xts[k * size:(k + 1) * size]
+        t0 = time.perf_counter()
+        mu, var = server(q, batch_size=size)   # host arrays: work done
+        lat.append(time.perf_counter() - t0)
+        iters.append(server.last_cg_iters)
+        _check(bool(np.all(np.isfinite(mu)) and np.all(var > 0)),
+               f"iterative request {k}: non-finite mean or var <= 0")
+        mus.append(mu)
+    yh = unapply_y(stats, np.concatenate(mus))
+    diff = float(np.max(np.abs(yh - yh_cli[:ITER_REQUESTS * size])))
+    tol = MEAN_TOL * float(np.std(yt))
+    med = float(np.median(lat))
+    print(f"iterative serve: setup {setup_s:.4f} s (N={Xtrs.shape[0]}, "
+          f"rank {server.precond_rank}, setup_cg_iters "
+          f"{server.setup_cg_iters}); {ITER_REQUESTS} requests x {size}: "
+          f"median {med:.4f} s, max {max(lat):.4f} s, "
+          f"{size / med:.1f} predictions/s, CG iterations {iters}; "
+          f"|mean - cli mean| {diff:.3e} (tol {tol:.3e})")
+    print(f"iterative serve: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; K3 share "
+          f"of the median request ~ {iters[0]} passes x {k3_ms:.3f} ms / "
+          f"{med * 1e3:.3f} ms = {iters[0] * k3_ms / (med * 1e3):.3f}")
+    _check(diff <= tol, "IterativePredictor means disagree with the CLI's")
+    return server, ytrs
+
+
+def phase_iter_setup_split(server, ytrs):
+    """Host-clock time of each setup step at the matrix-free path's N
+    (outside the counted run)."""
+    import torch
+
+    from gp_ss_ak_torch.inference.iterative import pivoted_cholesky
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pivoted_cholesky(server._Xm, server.sigma, server.bias,
+                     server.precond_rank)
+    torch.cuda.synchronize()
+    piv_s = time.perf_counter() - t0
+    y = torch.as_tensor(ytrs, dtype=torch.float32, device=server.device)
+    t0 = time.perf_counter()
+    _, it = server._solve(y[:, None])
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    print(f"iterative setup split (host clock, synchronized): pivoted "
+          f"Cholesky rank {server.precond_rank} {piv_s:.4f} s, alpha "
+          f"solve {solve_s:.4f} s ({int(it)} whitened-CG iterations, "
+          f"{solve_s / max(int(it), 1) * 1e3:.3f} ms each)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -398,35 +636,67 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    from gp_ss_ak_torch.ops import pairwise
+    from gp_ss_ak_torch.ops import matvec, pairwise
 
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
     k1 = phase_k1(device, args.seed)
+    k3 = phase_k3(device, args.seed)
     phase_golden(device)
     train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
-    pairwise.launches = 0          # the counted run: main path + serving
+    # counted run 1, the dense path: CLI test + dense serving
+    pairwise.launches = matvec.launches = 0
     yh_cli = phase_main(train, test, model_path)
-    main_launches = pairwise.launches
-    _check(main_launches == 2,
-           f"cli test: expected 2 K1 launches (A, cross), saw "
-           f"{main_launches}")
+    _check(pairwise.launches == 2 and matvec.launches == 0,
+           f"dense cli test: expected 2 K1 launches (A, cross) and no K3, "
+           f"saw {pairwise.launches} and {matvec.launches}")
     server, _ = phase_serve(device, torch.float32, train, test, model_path,
                             yh_cli)
-    launches = pairwise.launches
+    k1_dense = pairwise.launches
     phase_setup_split(server)
+    del server
+    torch.cuda.empty_cache()
+
+    phase_iter_vs_dense(device, train, test, model_path)
+    itrain, itest, imodel = write_case(WORK + "_iterative", args.seed,
+                                       N_ITER_TRAIN, N_ITER_TEST)
+
+    # counted run 2, the matrix-free path: CLI test (auto engine) +
+    # iterative serving
+    pairwise.launches = matvec.launches = 0
+    yh_it = phase_main(itrain, itest, imodel)
+    cli_k1, cli_k3 = pairwise.launches, matvec.launches
+    print(f"cli test at N={N_ITER_TRAIN} (auto engine): K3 launches "
+          f"{cli_k3}, K1 cross launches {cli_k1}")
+    _check(cli_k3 > 0, "auto engine did not pick the iterative server")
+    _check(cli_k1 > 0, "iterative cli test made no K1 cross launch")
+    iserver, ytrs = phase_iter_serve(device, itrain, itest, imodel, yh_it,
+                                     k3[ITER_REQUEST_SIZE][0])
+    k1_iter, k3_iter = pairwise.launches, matvec.launches
+    _check(k1_iter > cli_k1 and k3_iter > cli_k3,
+           "iterative serving launched no K1 or no K3")
+    phase_iter_setup_split(iserver, ytrs)
 
     print(json.dumps({"kernels": [{
         "name": "gram (K1, fused ExpAns+Bias Gram)",
         "route": "cuda",
         "source": "gp_ss_ak_torch/csrc/gram.cu",
         "replaces": "gp_ss_ak_tpu/ops/pairwise.py:42",
-        "launches": launches,
+        "launches": k1_dense + k1_iter,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+    }, {
+        "name": "matmat (K3, streamed Gram matmat, N=65536 B=1024)",
+        "route": "cuda",
+        "source": "gp_ss_ak_torch/csrc/matmat.cu",
+        "replaces": "gp_ss_ak_tpu/ops/matvec.py:90",
+        "launches": k3_iter,
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,12 @@ never jax and never gp_ss_ak_tpu.
 
 Ported so far: the serving path — data IO and standardization, the
 kernel library, model files, exact Gaussian inference (forward), the
-dense `serve.Predictor` and the CLI's `test` mode. The flagship
+dense `serve.Predictor`, the matrix-free `serve.IterativePredictor`
+(pivoted-Cholesky whitened batched CG, inference/iterative.py) and the
+CLI's `test` mode with both engines. On a GPU the flagship
 Sum([ExpAns, Bias]) Gram runs through the hand-written CUDA kernel
-csrc/gram.cu on a GPU (ops/pairwise.py).
+csrc/gram.cu (ops/pairwise.py), and the matrix-free operator through
+csrc/matmat.cu (ops/matvec.py).
 """
 
 __version__ = "0.1.0"

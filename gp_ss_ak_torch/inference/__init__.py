@@ -1,4 +1,5 @@
-"""Inference: exact Gaussian GP regression (serving path)."""
+"""Inference: exact Gaussian GP regression (serving path), and the
+iterative solvers of the matrix-free server (inference.iterative)."""
 
 from gp_ss_ak_torch.inference.gaussian import (
     Posterior,

