@@ -1,31 +1,51 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
-  2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu) and
-     K3 (csrc/matmat.cu) into one library, one nvcc per source;
+  2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
+     (csrc/matvec.cu) and K3 (csrc/matmat.cu) into one library, one nvcc
+     per source;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
   4. K3 against its plain version in float64, at ragged sizes and at the
      matrix-free path's shapes, with a TF32 control that the same gate
-     must reject, plus timings;
-  5. the golden fixture (tests/golden) through K1 in float64;
-  6. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
+     must reject, plus timings and a cuBLAS yardstick on a prebuilt K;
+  5. K2 against its plain version in float64 at ragged sizes and at
+     N = 16384, 32768 (the K2 path's) and 65536, the same gate and TF32
+     control, two passes for equal bits, and its time beside its bound
+     and K3 at B = 1;
+  6. the golden fixture (tests/golden) through K1 in float64;
+  7. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
      float32 on a synthetic ore body, N_train = 16384, N_test = 4096;
-  7. dense serving: one `serve.Predictor`, then 8 requests of 512
+  8. dense serving: one `serve.Predictor`, then 8 requests of 512
      queries, and its setup split;
-  8. the matrix-free `serve.IterativePredictor` (float32) against the
-     dense Predictor in float64 on the same N = 16384 case;
-  9. the matrix-free path: the same CLI call with the default
+  9. the dense training path: `cli.main([... "train" -# 5 ...])` at
+     N = 16384 (DENSE_MAX_N), then `test` on the trained model (the
+     round trip), and one real evaluation under torch.profiler;
+ 10. the matrix-free `serve.IterativePredictor` (float32) against the
+     dense Predictor in float64 on the same N = 16384 case, and
+     `nlml_and_grad_iterative` there in chol, gemm and stream mode with
+     the same probes;
+ 11. the matrix-free path: the same CLI call with the default
      `--engine auto` at N_train = 65536, N_test = 1024, which must pick
      the iterative server; then one IterativePredictor serving 4
-     requests of 256 queries, and its setup split.
-The line before the last is the JSON kernel report; the last line is
-{"ok": true, "device": {...}}. Exits non-zero, printing no result,
-when no CUDA device is available or the package is missing.
+     requests of 256 queries, and its setup split;
+ 12. matrix-free training: `optim.fit(engine="iterative", stream mode,
+     iters=2)` at N = 65536, and one real evaluation under
+     torch.profiler;
+ 13. the default train route at N = 65536: `cli.main([... "train" -# 1
+     ...])` with `--engine auto` (chol mode on an 80 GB card) and its
+     dense training-set predict, profiled, with its peak memory;
+ 14. the K2 path: `nlml_iterative(precond_rank=0, mode="stream")` at
+     N = 32768, its residual through K3 and chol mode's exact value.
+Each counted path runs with the launch counts set to 0 just before it
+and read just after. The line before the last is the JSON kernel report;
+the last line is {"ok": true, "device": {...}}. Exits non-zero, printing
+no result, when no CUDA device is available or the package is missing.
 """
 
 from __future__ import annotations
@@ -66,6 +86,22 @@ TOL_F32 = 1e-5                  # float32 kernel vs plain in float64
 # below, which the gate must fail) at no less than 4.7e-7 (N = 65536,
 # B = 1; its error grows like sqrt(n)), so the limit sits ~3x from each.
 TOL_K3 = 1.5e-7
+# the K2 path (no preconditioner) and matrix-free training
+N_K2_PATH = 32768
+K2_PATH_RES = 4.0               # its true residual's limit, x cg_tol
+N_ITER_FIT = N_ITER_TRAIN
+# stream vs gemm mode of nlml_and_grad_iterative at N_TRAIN with the same
+# probes: tests/test_iterative.py:355-365's tolerances for two modes
+MODE_VAL_REL, MODE_VAL_ABS = 1e-4, 0.05
+MODE_GRAD_REL, MODE_GRAD_ABS = 1e-3, 1e-2
+MODE_CG_TOL = 1e-6              # that test's CG tolerance
+# the Xm gradient, stream vs gemm, relative to its largest entry: 1.6e-3
+# on an H100 at cg_tol 1e-4 and at 1e-6 alike (float32 contraction
+# round-off, not the solves), so the limit sits ~6x above it
+MODE_XM_REL = 1e-2
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
+# HBM bytes/s and FP32 outside the tensor cores, flop/s
+PEAK_BYTES_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
@@ -110,6 +146,32 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves `nbytes` (each input read once, each output written once)
+    and does `flops` FP32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_flops(n: int, m: int, d: int) -> float:
+    """FP32 operations of K1's n*m Gram entries over d features: d
+    differences and d multiply-adds (2 each) for the distance, the scale
+    by s2 and the bias add; the sqrt and exp run on the SFU and are not
+    counted."""
+    return float(n) * m * (3 * d + 2)
+
+
+def streamed_flops(n: int, d: int, b: int, scaled: bool) -> float:
+    """FP32 operations of one streamed pass over the n*n Gram entries
+    against b columns: the distance (3d, as in gram_flops) and a
+    multiply-add with each column (2b). `scaled`: the kernel multiplies
+    each entry by s2 (K3); K2 scales each output once instead, and
+    neither adds the bias, which the caller applies."""
+    return float(n) * n * (3 * d + 2 * b + (1 if scaled else 0))
+
+
 def phase_device():
     import torch
 
@@ -132,7 +194,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: K1 and K3 loaded in {time.perf_counter() - t0:.3f} s "
+    print(f"build: K1, K2 and K3 loaded in {time.perf_counter() - t0:.3f} s "
           f"(nvcc, one process per source, then link: "
           f"{_build.build_info.get('seconds', 0.0):.3f} s)")
     for line in _build.build_info.get("log", "").splitlines():
@@ -210,7 +272,13 @@ def phase_k1(device, seed: int, cases=None, time_shapes=True):
                   f"{str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
                   f"({gbs:.0f} GB/s of output), plain {plain_ms:.4f} ms")
             if dtype == torch.float32 and m is None:
-                report.update(ms=ms, plain_ms=plain_ms)
+                # bound: the N^2 float32 output written once
+                b_ms, b_by = bound(4.0 * N_TRAIN * (N_TRAIN + 2 * 3),
+                                   gram_flops(N_TRAIN, N_TRAIN, 3))
+                print(f"K1 bound {N_TRAIN}^2 diag f32: {b_ms:.4f} ms "
+                      f"({b_by}); kernel at {b_ms / ms:.3f} of it")
+                report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
             del X, Y
     return report
 
@@ -249,7 +317,7 @@ def phase_k3(device, seed: int):
     matrix-free path's shapes; returns the report."""
     import torch
 
-    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.ops import matvec, pairwise
 
     scale = SIGMA * SIGMA + BIAS
     g = torch.Generator(device=device).manual_seed(seed)
@@ -302,11 +370,92 @@ def phase_k3(device, seed: int):
             Xk, scal, bias_t, sn2_t, V), warmup=1, iters=min(iters, 5))
         pairs = n * n / (ms * 1e-3) / 1e9
         tflops = 2.0 * n * n * b / (ms * 1e-3) / 1e12
+        # bound: points, V and Y once; the distances, the s2 scale of
+        # each entry and 2 n^2 B FFMA
+        b_ms, b_by = bound(4.0 * n * (4 + 2 * b),
+                           streamed_flops(n, 3, b, scaled=True))
         print(f"K3 time N={n} B={b} d=3 f32: kernel {ms:.4f} ms "
               f"({pairs:.1f} Gpairs/s, {tflops:.2f} TFLOP/s of K.V), "
-              f"plain {plain_ms:.4f} ms")
-        report[b] = (ms, plain_ms)
-    report["ms"], report["plain_ms"] = report[1024]
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        report[b] = (ms, plain_ms, b_ms, b_by)
+    report["ms"], report["plain_ms"], report["bound_ms"], \
+        report["bound_by"] = report[1024]
+    # a partial yardstick, not the same work: cuBLAS SGEMM on a K that
+    # K1 has already built (17 GB at N = 65536), at B = 1024
+    K = pairwise.expans_bias_gram(Xk[:, :3].contiguous(), SIGMA, BIAS)
+    report["gemm_ms"] = time_ms(lambda: K @ V, warmup=1, iters=2)
+    print(f"K3 yardstick (partial: K prebuilt by K1, not streamed): cuBLAS "
+          f"SGEMM K @ V at N={n} B={V.shape[1]}: {report['gemm_ms']:.4f} "
+          f"ms, against K3's {report['ms']:.4f} ms")
+    del K
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_k2(device, seed: int):
+    """K2 vs its plain version in float64 on the same inputs, held to
+    K3's gate per output with the TF32 control that it must reject; two
+    passes for equal bits; then CUDA event times beside the bound and K3
+    at B = 1 on the same inputs. Returns the report."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    scale = SIGMA * SIGMA + BIAS
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    report = {"max_abs_err": 0.0}
+    worst_ratio, ctl_ratio = 0.0, float("inf")
+    for n, d in ((1000, 3), (1000, 4), (4097, 3), (4097, 5),
+                 (N_TRAIN, 3), (N_K2_PATH, 3), (N_ITER_TRAIN, 3)):
+        X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
+        Xk, scal = matvec.operator_arrays(X, SIGMA)
+        v = torch.randn(n, generator=g, device=device)
+        y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+        y2 = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+        ref = matvec.streamed_matvec_plain(Xk.double(), scal.double(), BIAS,
+                                           SN2, v.double())
+        err = float((y.double() - ref).abs().max())
+        lim = TOL_K3 * scale * float(v.double().abs().sum())
+        cerr = float((tf32_control(Xk, scal, v[:, None])[:, 0] - ref)
+                     .abs().max())
+        same = torch.equal(y, y2)
+        print(f"K2 n={n} d={d}: max |kernel-plain64| {err:.3e} = "
+              f"{err / lim:.3e} of the limit {TOL_K3}*(s2+bias)*||v||_1; "
+              f"TF32 control at {cerr / lim:.3e} of it; two passes "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        _check(err <= lim, f"K2 disagrees at n={n} d={d}")
+        _check(cerr > lim, f"K2 gate too loose: a TF32 product passes it "
+               f"at n={n} d={d}")
+        _check(same, f"K2 passes differ at n={n} d={d}")
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        worst_ratio = max(worst_ratio, err / lim)
+        ctl_ratio = min(ctl_ratio, cerr / lim)
+        if d == 3 and n in (N_TRAIN, N_ITER_TRAIN):
+            bias_t, sn2_t = (torch.tensor(x, device=device)
+                             for x in (BIAS, SN2))
+            V = v[:, None].contiguous()
+            ms = time_ms(lambda: matvec.streamed_matvec(
+                Xk, scal, bias_t, sn2_t, v), warmup=3, iters=20)
+            k3_ms = time_ms(lambda: matvec.streamed_matmat(
+                Xk, scal, bias_t, sn2_t, V), warmup=2, iters=10)
+            plain_ms = time_ms(lambda: matvec.streamed_matvec_plain(
+                Xk, scal, bias_t, sn2_t, v), warmup=1, iters=3)
+            # bound: points, v and y once; the distances and the
+            # multiply-add of each entry with v (s2 once per output)
+            b_ms, b_by = bound(4.0 * n * (4 + 2),
+                               streamed_flops(n, 3, 1, scaled=False))
+            print(f"K2 time N={n} d=3 f32: kernel {ms:.4f} ms "
+                  f"({n * n / (ms * 1e-3) / 1e9:.1f} Gpairs/s), bound "
+                  f"{b_ms:.4f} ms ({b_by}, kernel at {b_ms / ms:.3f} of "
+                  f"it), K3 at B = 1 {k3_ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms")
+            report[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, k3_ms=k3_ms)
+        del X, Xk, v, y, y2, ref
+    print(f"K2: worst error {report['max_abs_err']:.3e}, worst at "
+          f"{worst_ratio:.3e} of its limit; the TF32 control at no less "
+          f"than {ctl_ratio:.3e} of it")
+    report.update(report[N_ITER_TRAIN])
     return report
 
 
@@ -320,7 +469,7 @@ def phase_golden(device):
     from gp_ss_ak_torch.ops import pairwise
 
     f64 = torch.float64
-    model = load_model(os.path.join(GOLDEN, "model")).to(f64, device)
+    model = load_model(os.path.join(GOLDEN, "model"), device=device)
     stats = Statistics.load(os.path.join(GOLDEN, "model_Statistics.txt"))
     Xtr, ytr = read_data(os.path.join(GOLDEN, "train.txt"))
     Xte, _ = read_data(os.path.join(GOLDEN, "test.txt"))
@@ -381,7 +530,7 @@ def write_case(workdir: str, seed: int, n_train: int, n_test: int):
     write_data(test, X[n_train:], y[n_train:])
     _, _, stats = prepare(X[:n_train], y[:n_train], MODE_SYMMETRIC)
     stats.save(model_path + "_Statistics.txt")
-    golden = load_model(os.path.join(GOLDEN, "model"))
+    golden = load_model(os.path.join(GOLDEN, "model"), device="cpu")
     model = dataclasses.replace(
         golden, num_data=n_train,
         lik_hypers=torch.tensor([SN2], dtype=torch.float64))
@@ -440,7 +589,7 @@ def phase_serve(device, dtype, train: str, test: str, model_path: str,
     from gp_ss_ak_torch.ops import pairwise
     from gp_ss_ak_torch.serve import Predictor
 
-    model = load_model(model_path).to(dtype, device)
+    model = load_model(model_path, dtype, device)
     stats = Statistics.load(model_path + "_Statistics.txt")
     Xtr, ytr = read_data(train)
     Xt, yt = read_data(test)
@@ -509,11 +658,406 @@ def phase_setup_split(server):
           f"potrf {chol_ms:.4f} ms, L^-1 {linv_ms:.4f} ms")
 
 
+def phase_dense_train(train: str, workdir: str):
+    """`train -# 5` through the CLI entry point in float32 from the
+    flagship defaults; returns (model path, the fit's evaluation count)."""
+    import torch
+
+    from gp_ss_ak_torch import cli
+
+    model_path = os.path.join(workdir, "trained")
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["-v", "1", "train", "-#", "5", train, model_path])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print("cli train:", " | ".join(text.strip().splitlines()),
+          f"(rc {rc}, {wall:.3f} s wall, file IO included)")
+    _check(rc == 0, f"cli train returned {rc}")
+    m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals, "
+                  r"stop: (\S+)\)", text)
+    _check(m is not None, "cli train printed no -logL line")
+    first, last = float(m.group(1)), float(m.group(2))
+    _check(np.isfinite(first) and np.isfinite(last) and last < first,
+           f"-logL did not decrease: {first} -> {last}")
+    print(f"dense train: -logL {first} -> {last}, {m.group(3)} iterations, "
+          f"{m.group(4)} evaluations, stop reason {m.group(5)}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return model_path, int(m.group(4))
+
+
+def profile_split(fn, ranges):
+    """Run fn() once under torch.profiler (host and CUDA activity).
+    Returns (fn's result, its host-clock seconds up to a synchronize,
+    {name: (calls, device ms, host ms)} for each name in `ranges`, the
+    device time of every kernel, memcpy and memset, the six kernels
+    with the most time as [(name, calls, ms)]).
+
+    A name in `ranges` is a profiler range (record_function) or
+    "kernel:<text>" for the kernels whose name holds the text. A range's
+    device time is that of the device events inside its device-side
+    span. The kernels of this repo's CUDA library are not linked to the
+    host range that launched them (they bypass torch's launch path), but
+    they run inside that span on the one stream; a host event's own
+    device total is not used, since it also counts the device-side span
+    of a range as one of its kernels. Host ms: the host range's own
+    duration."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    annotations = {e.name for e in events
+                   if getattr(e, "is_user_annotation", False)}
+    annotations |= {k for k in ranges if not k.startswith("kernel:")}
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    work = [(e.time_range.start, e.time_range.end, e.name) for e in dev
+            if e.name not in annotations]
+
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == e.name:
+                return False
+            p = p.cpu_parent
+        return True
+
+    split = {}
+    for name in ranges:
+        hits = [e for e in host if e.name == name and outermost(e)]
+        host_ms = sum(e.cpu_time_total for e in hits) / 1e3
+        if name.startswith("kernel:"):
+            mine = [t1 - t0 for t0, t1, k in work if name[7:] in k]
+            split[name] = (len(mine), sum(mine) / 1e3, 0.0)
+        else:
+            spans = [(e.time_range.start, e.time_range.end) for e in dev
+                     if e.name == name]
+            busy = sum(t1 - t0 for t0, t1, _ in work
+                       if any(a <= t0 and t1 <= b for a, b in spans))
+            split[name] = (len(hits), busy / 1e3, host_ms)
+    by_name = {}
+    for t0, t1, k in work:
+        c, t = by_name.get(k, (0, 0.0))
+        by_name[k] = (c + 1, t + (t1 - t0) / 1e3)
+    total = sum(t for _, t in by_name.values())
+    top = sorted(((k[:60], c, t) for k, (c, t) in by_name.items()),
+                 key=lambda r: -r[2])[:6]
+    return out, wall, split, total, top
+
+
+def _split_text(split, labels, wall, total, top):
+    parts = ", ".join(f"{labels[k]} {split[k][1]:.4f} ms" for k in labels)
+    kern = "; ".join(f"{n} x{c} {t:.3f} ms" for n, c, t in top)
+    return (f"{parts}; all device events {total:.4f} ms of "
+            f"{wall * 1e3:.4f} ms profiled wall (device busy "
+            f"{total / (wall * 1e3):.3f}); most device time: {kern}")
+
+
+def phase_dense_eval_split(device, train: str, test: str, model_path: str):
+    """One real dense NLML + gradient evaluation (make_value_and_grad,
+    as the fit calls it) at N_TRAIN in float32: its host-clock time
+    alone, then its device time by profiler range and by kernel."""
+    import torch
+
+    from gp_ss_ak_torch.optim import make_value_and_grad
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    vg = make_value_and_grad(model, Xtrs, ytrs)
+    x = model.pack().cpu().numpy().astype(np.float64)
+    vg(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, _ = vg(x)
+    whole = time.perf_counter() - t0
+    labels = {"kernel:gram_kernel": "K1 forward",
+              "QuadLogdet.forward": "potrf + solve",
+              "QuadLogdet.backward": "QW backward (trsm + GEMM)",
+              "FusedExpansBiasA.backward": "K1 backward"}
+    _, pwall, split, total, top = profile_split(lambda: vg(x), labels)
+    text = _split_text(split, labels, pwall, total, top)
+    print(f"dense evaluation at N={Xtrs.shape[0]} f32, torch.profiler "
+          f"device time: {text}; one whole value and gradient "
+          f"{whole * 1e3:.3f} ms (host clock, unprofiled, -logL "
+          f"{val:.6f})")
+    torch.cuda.empty_cache()
+
+
+def _iterative_gp(model, Xtrs, device):
+    import torch
+
+    from gp_ss_ak_torch.inference.iterative import IterativeGP
+    from gp_ss_ak_torch.ops import mapped_points
+
+    ep, bp = model.kernel_params
+    X = torch.as_tensor(Xtrs, dtype=torch.float32, device=device)
+    Xm = mapped_points(model.kernel.children[0], ep, X).contiguous()
+    return IterativeGP(Xm, ep["Sigma"], bp["Sigma"], model.lik_hypers[0])
+
+
+def phase_iter_modes(device, seed: int, train: str, test: str,
+                     model_path: str):
+    """nlml_and_grad_iterative at N_TRAIN in chol, gemm and stream mode
+    with the same probes at tests/test_iterative.py:355-384's cg_tol
+    (outside the counted runs). Gated with that test's tolerances: the
+    value, stream against gemm (the same SLQ estimator on two
+    operators); the sigma and sn2 gradients, stream against gemm and
+    against chol (exact solves, the same Hutchinson probes). Not gated:
+    chol's value against the others, which differs by the SLQ's probe
+    variance (~10 nats at 64 probes here), and the bias gradient (~5), a
+    float32 cancellation of terms ~1e8 whose difference between any two
+    runs exceeds 1e-2 at N = 16384 at any cg_tol. The Xm gradient is
+    held within MODE_XM_REL of its largest entry (PERF.md §6)."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    gp = _iterative_gp(model, Xtrs, device)
+    y = torch.as_tensor(ytrs, dtype=torch.float32, device=device)
+    n = y.shape[0]
+    key = torch.Generator(device=device).manual_seed(seed)
+    Zt, Zl = ti.rademacher(key, (n, 8)), ti.rademacher(key, (n, 64))
+    out = {}
+    for mode in ("chol", "gemm", "stream"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, grads, st = ti.nlml_and_grad_iterative(
+            gp, y, None, None, mode=mode, Z_logdet=Zl, Z_trace=Zt,
+            cg_tol=MODE_CG_TOL, cg_maxiter=2000)
+        torch.cuda.synchronize()
+        out[mode] = (float(val), [float(g) for g in grads[:3]], grads[3])
+        print(f"mode {mode} at N={n}: value {float(val):.6f}, "
+              f"d(sigma, bias, sn2) {out[mode][1]}, {st.cg_iters} CG "
+              f"iterations, rel residual {float(st.rel_residual):.2e}, "
+              f"{time.perf_counter() - t0:.3f} s")
+
+    def within(a, b, rel, abs_):
+        return abs(a - b) <= abs_ + rel * abs(b)
+
+    vg, gg, xg = out["gemm"]
+    vs, gs, xs = out["stream"]
+    vc, gc, _ = out["chol"]
+    dx = float((xs - xg).abs().max() / xg.abs().max())
+    print(f"modes: |stream - gemm| value {abs(vs - vg):.3e} (limit "
+          f"{MODE_VAL_ABS + MODE_VAL_REL * abs(vg):.3e}), d Xm max diff "
+          f"{dx:.2e} of its largest (limit {MODE_XM_REL}); not gated: "
+          f"|stream - chol| value {abs(vs - vc):.3e} (the SLQ's probe "
+          f"variance), bias gradient |stream - gemm| "
+          f"{abs(gs[1] - gg[1]):.3e}, |stream - chol| "
+          f"{abs(gs[1] - gc[1]):.3e} (float32 cancellation)")
+    _check(within(vs, vg, MODE_VAL_REL, MODE_VAL_ABS),
+           "stream and gemm values disagree")
+    _check(dx <= MODE_XM_REL, "stream and gemm Xm gradients disagree")
+    for ref, name in ((gg, "gemm"), (gc, "chol")):
+        for i in (0, 2):
+            _check(within(gs[i], ref[i], MODE_GRAD_REL, MODE_GRAD_ABS),
+                   f"stream and {name} sigma/sn2 gradients disagree")
+
+
+def phase_iter_fit(device, train: str, test: str, model_path: str):
+    """optim.fit on the matrix-free engine in stream mode, 2 iterations,
+    at N_ITER_FIT; returns (the starting model, X, y, K3 launches)."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.optim import fit
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    print(f"mode thresholds on this card (chol, gemm max N): "
+          f"{ti._mode_thresholds(device)}; CPU defaults "
+          f"{ti._mode_thresholds(None)}")
+    torch.cuda.reset_peak_memory_stats()
+    timing = {}
+    before = matvec.launches
+    t0 = time.perf_counter()
+    fitted, res = fit(model, Xtrs, ytrs, iters=2, engine="iterative",
+                      engine_opts={"mode": "stream"}, timing=timing)
+    wall = time.perf_counter() - t0
+    k3 = matvec.launches - before
+    print(f"iterative fit N={Xtrs.shape[0]} (stream): -logL "
+          f"{res.trace[0]:.6f} -> {res.fun:.6f}, {res.n_iters} iterations, "
+          f"{res.n_evals} evaluations, stop {res.stop_reason}; CG "
+          f"(iterations, rel residual) per evaluation {timing['cg']}; "
+          f"evaluation s {[round(w, 3) for w in timing['eval_s']]}; wall "
+          f"{wall:.3f} s; K3 launches {k3}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(all(np.isfinite(v) for v in res.trace) and np.isfinite(res.fun)
+           and res.fun <= res.trace[0], "iterative fit: bad -logL")
+    _check(bool(np.all(np.isfinite(fitted.pack().cpu().numpy()))),
+           "iterative fit: non-finite hyperparameters")
+    _check(k3 > 0, "iterative fit launched no K3")
+    return model, Xtrs, ytrs, k3
+
+
+def phase_iter_eval_split(device, seed: int, model, Xtrs, ytrs):
+    """One real nlml_and_grad_iterative call (stream mode, the fit's
+    defaults, probes drawn from `seed`) at N_ITER_FIT at the fit's
+    starting point, under torch.profiler: device and host time by stage
+    (outside the counted runs)."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    gp = _iterative_gp(model, Xtrs, device)
+    y = torch.as_tensor(ytrs, dtype=torch.float32, device=device)
+    n = y.shape[0]
+    key = torch.Generator(device=device).manual_seed(seed)
+    Zt, Zl = ti.rademacher(key, (n, 8)), ti.rademacher(key, (n, 64))
+    labels = {"iterative._pivchol": "pivoted Cholesky",
+              "iterative.whitened_solve_info": "whitened CG",
+              "iterative.slq_logdet_batched": "SLQ",
+              "iterative._grad_contraction": "gradient contraction"}
+
+    def one():
+        return ti.nlml_and_grad_iterative(gp, y, None, None, mode="stream",
+                                          Z_logdet=Zl, Z_trace=Zt)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    (_, _, st), pwall, split, total, top = profile_split(one, labels)
+    host = ", ".join(f"{labels[k]} {split[k][2] / 1e3:.3f} s"
+                     for k in labels)
+    print(f"iterative evaluation at N={n} (stream): {whole:.3f} s host "
+          f"clock unprofiled; under torch.profiler, device time "
+          f"{_split_text(split, labels, pwall, total, top)}; host clock "
+          f"(profiled) {host}; whitened CG {st.cg_iters} iterations at "
+          f"B = 9, rel residual {float(st.rel_residual):.2e}")
+    torch.cuda.empty_cache()
+
+
+def phase_train_default(itrain: str, workdir: str):
+    """`train -# 1` through the CLI at N_ITER_TRAIN with the default
+    `--engine auto`, the route a user gets there: the iterative engine in
+    the mode the card's thresholds pick, then the CLI's dense
+    training-set predict. Under torch.profiler (per-evaluation and
+    predict time); peak device memory. Returns (the evaluation count,
+    the mode)."""
+    import torch
+
+    from gp_ss_ak_torch import cli
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    mode = ti.choose_mode(N_ITER_TRAIN, "auto", torch.device("cuda", 0))
+    model_path = os.path.join(workdir, "trained_default")
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    labels = {"iterative_fit.value_and_grad": "evaluations",
+              "kernel:gram_kernel": "K1",
+              "iterative._materialized_chol": "A + potrf",
+              "iterative._grad_contraction": "contraction",
+              "cmd_train.predict": "training-set predict"}
+    with contextlib.redirect_stdout(out):
+        rc, wall, split, total, top = profile_split(lambda: cli.main(
+            ["-v", "1", "train", "-#", "1", itrain, model_path]), labels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    text = out.getvalue()
+    print("cli train (default engine):", " | ".join(
+        text.strip().splitlines()), f"(rc {rc}, {wall:.3f} s wall "
+        f"profiled, file IO included)")
+    _check(rc == 0, f"cli train at N={N_ITER_TRAIN} returned {rc}")
+    m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals, "
+                  r"stop: (\S+)\)", text)
+    _check(m is not None, "cli train printed no -logL line")
+    first, last, evals = float(m.group(1)), float(m.group(2)), \
+        int(m.group(4))
+    mse = float(re.search(r"Mean Square Error of training: (\S+)",
+                          text).group(1))
+    var_y = float(re.search(r"Var MSE Train: (\S+)", text).group(1))
+    calls, dev, host = split["iterative_fit.value_and_grad"]
+    print(f"default train route at N={N_ITER_TRAIN} (auto engine, mode "
+          f"{mode}): -logL {first} -> {last}, {evals} evaluations, stop "
+          f"{m.group(5)}; per evaluation {host / max(calls, 1):.1f} ms host "
+          f"clock (profiled), {dev / max(calls, 1):.1f} ms device; "
+          f"training-set predict {split['cmd_train.predict'][1]:.1f} ms "
+          f"device; training MSE {mse:.6g} = {mse / var_y:.4f} var(y); "
+          f"peak device memory {peak:.3f} GiB")
+    print(f"default train route, device time: "
+          f"{_split_text(split, labels, wall, total, top)}")
+    _check(np.isfinite(first) and np.isfinite(last) and last <= first,
+           f"default train route: -logL {first} -> {last}")
+    _check(np.isfinite(mse) and mse < MSE_MAX * var_y,
+           f"training MSE {mse} not below {MSE_MAX} * var(y)")
+    return evals, mode
+
+
+def phase_k2_path(device, seed: int, train: str, test: str,
+                  model_path: str):
+    """nlml_iterative without a preconditioner in stream mode, the path
+    that runs K2, at N_K2_PATH; returns its K2 launches."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.ops.matvec import MatvecOperator
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    Xtrs, ytrs = Xtrs[:N_K2_PATH], ytrs[:N_K2_PATH]
+    gp = _iterative_gp(model, Xtrs, device)
+    y = torch.as_tensor(ytrs, dtype=torch.float32, device=device)
+    key = torch.Generator(device=device).manual_seed(seed)
+    cg_tol, cg_maxiter = 1e-4, 800
+    matvec.matvec_launches = matvec.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, alpha, it = ti.nlml_iterative(gp, y, key, cg_tol=cg_tol,
+                                       cg_maxiter=cg_maxiter,
+                                       precond_rank=0, mode="stream")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k3 = matvec.matvec_launches, matvec.launches
+    op = MatvecOperator(gp.Xm, gp.sigma, gp.bias, gp.sn2)
+    ny = torch.linalg.vector_norm(y)
+    k2_alpha, k3_alpha = op(alpha), op.matmat(alpha[:, None])[:, 0]
+    res2 = float(torch.linalg.vector_norm(k2_alpha - y) / ny)
+    res3 = float(torch.linalg.vector_norm(k3_alpha - y) / ny)
+    gap = float(torch.linalg.vector_norm(k3_alpha - k2_alpha) / ny)
+    exact, _, _ = ti.nlml_iterative(gp, y, None, mode="chol")
+    print(f"K2 path N={N_K2_PATH}: nlml_iterative(precond_rank=0, stream) "
+          f"{float(val):.6f} in {wall:.3f} s; CG {it} iterations "
+          f"({'hit cg_maxiter' if it >= cg_maxiter else 'converged'}), "
+          f"K2 launches {k2}, K3 launches {k3} (SLQ); ||A alpha - y|| / "
+          f"||y|| through K3 {res3:.3e} (limit {K2_PATH_RES} cg_tol), "
+          f"through K2 (CG's operator) {res2:.3e}, cg_tol {cg_tol}; the two operators differ on alpha "
+          f"by {gap:.3e} ||y|| (||alpha|| / ||y|| = "
+          f"{float(torch.linalg.vector_norm(alpha) / ny):.1f}); chol "
+          f"mode's exact value {float(exact):.6f} (the raw-A SLQ is biased "
+          f"at sn2 = {SN2}, not gated)")
+    _check(k2 == it + 1, f"expected {it + 1} K2 launches, saw {k2}")
+    _check(np.isfinite(float(val)), "K2 path: non-finite value")
+    if it < cg_maxiter:
+        # plain float32 CG stops on its updated residual, which drifts
+        # from the true one over hundreds of unpreconditioned iterations:
+        # on an H100 the true residual through K2 itself read 1.56 cg_tol
+        # at 412 iterations, 1.61 through K3 (their disagreement on alpha
+        # adds 0.49 cg_tol). The gate sits ~2.5x above those readings.
+        _check(res3 <= K2_PATH_RES * cg_tol, f"K2 path: CG converged but "
+               f"the residual through K3 is above {K2_PATH_RES} cg_tol")
+    return k2
+
+
 def _load_case(device, dtype, train: str, test: str, model_path: str):
     from gp_ss_ak_torch.data import Statistics, apply, read_data
     from gp_ss_ak_torch.model import load_model
 
-    model = load_model(model_path).to(dtype, device)
+    model = load_model(model_path, dtype, device)
     stats = Statistics.load(model_path + "_Statistics.txt")
     Xtr, ytr = read_data(train)
     Xt, yt = read_data(test)
@@ -625,8 +1169,16 @@ def phase_iter_setup_split(server, ytrs):
           f"{solve_s / max(int(it), 1) * 1e3:.3f} ms each)")
 
 
+def _kernel_entry(name, source, replaces, launches, report):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": report["max_abs_err"], "ms": report["ms"],
+            "plain_ms": report["plain_ms"], "bound_ms": report["bound_ms"],
+            "bound_by": report["bound_by"], "library_ms": None}
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -638,34 +1190,55 @@ def main(argv=None) -> int:
         return 1
     from gp_ss_ak_torch.ops import matvec, pairwise
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
     k1 = phase_k1(device, args.seed)
     k3 = phase_k3(device, args.seed)
+    k2 = phase_k2(device, args.seed)
     phase_golden(device)
     train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
-    # counted run 1, the dense path: CLI test + dense serving
-    pairwise.launches = matvec.launches = 0
+    def zero():
+        pairwise.launches = matvec.launches = matvec.matvec_launches = 0
+
+    def counts():
+        return pairwise.launches, matvec.matvec_launches, matvec.launches
+
+    # counted run 1, the dense serving path: CLI test + dense serving
+    zero()
     yh_cli = phase_main(train, test, model_path)
-    _check(pairwise.launches == 2 and matvec.launches == 0,
-           f"dense cli test: expected 2 K1 launches (A, cross) and no K3, "
-           f"saw {pairwise.launches} and {matvec.launches}")
+    _check(counts() == (2, 0, 0),
+           f"dense cli test: expected 2 K1 launches (A, cross) and no K2 "
+           f"or K3, saw (K1, K2, K3) = {counts()}")
     server, _ = phase_serve(device, torch.float32, train, test, model_path,
                             yh_cli)
-    k1_dense = pairwise.launches
+    k1_launches = pairwise.launches
     phase_setup_split(server)
     del server
     torch.cuda.empty_cache()
 
+    # counted run 2, the dense training path: CLI train, then test on the
+    # trained model (the round trip)
+    zero()
+    trained, n_evals = phase_dense_train(train, WORK)
+    phase_main(train, test, trained)
+    _check(counts() == (n_evals + 4, 0, 0),
+           f"dense train + test: expected {n_evals} K1 launches for the "
+           f"fit, 2 for its training-set predict and 2 for test, and no "
+           f"K2 or K3; saw (K1, K2, K3) = {counts()}")
+    k1_launches += pairwise.launches
+    phase_dense_eval_split(device, train, test, trained)
+
     phase_iter_vs_dense(device, train, test, model_path)
+    phase_iter_modes(device, args.seed, train, test, model_path)
     itrain, itest, imodel = write_case(WORK + "_iterative", args.seed,
                                        N_ITER_TRAIN, N_ITER_TEST)
 
-    # counted run 2, the matrix-free path: CLI test (auto engine) +
-    # iterative serving
-    pairwise.launches = matvec.launches = 0
+    # counted run 3, the matrix-free serving path: CLI test (auto
+    # engine) + iterative serving
+    zero()
     yh_it = phase_main(itrain, itest, imodel)
     cli_k1, cli_k3 = pairwise.launches, matvec.launches
     print(f"cli test at N={N_ITER_TRAIN} (auto engine): K3 launches "
@@ -674,30 +1247,56 @@ def main(argv=None) -> int:
     _check(cli_k1 > 0, "iterative cli test made no K1 cross launch")
     iserver, ytrs = phase_iter_serve(device, itrain, itest, imodel, yh_it,
                                      k3[ITER_REQUEST_SIZE][0])
-    k1_iter, k3_iter = pairwise.launches, matvec.launches
-    _check(k1_iter > cli_k1 and k3_iter > cli_k3,
+    _check(pairwise.launches > cli_k1 and matvec.launches > cli_k3,
            "iterative serving launched no K1 or no K3")
+    k1_launches += pairwise.launches
+    k3_launches = matvec.launches
     phase_iter_setup_split(iserver, ytrs)
+    del iserver
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "gram (K1, fused ExpAns+Bias Gram)",
-        "route": "cuda",
-        "source": "gp_ss_ak_torch/csrc/gram.cu",
-        "replaces": "gp_ss_ak_tpu/ops/pairwise.py:42",
-        "launches": k1_dense + k1_iter,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }, {
-        "name": "matmat (K3, streamed Gram matmat, N=65536 B=1024)",
-        "route": "cuda",
-        "source": "gp_ss_ak_torch/csrc/matmat.cu",
-        "replaces": "gp_ss_ak_tpu/ops/matvec.py:90",
-        "launches": k3_iter,
-        "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"],
-    }]}))
+    # counted run 4, matrix-free training (stream mode)
+    zero()
+    start, Xfit, yfit, _ = phase_iter_fit(device, itrain, itest, imodel)
+    _check(matvec.launches > 0 and matvec.matvec_launches == 0,
+           f"iterative fit: (K1, K2, K3) = {counts()}")
+    k1_launches += pairwise.launches
+    k3_launches += matvec.launches
+    phase_iter_eval_split(device, args.seed, start, Xfit, yfit)
+
+    # counted run 5, the default train route past DENSE_MAX_N: the CLI
+    # with --engine auto, then its dense training-set predict
+    zero()
+    n_evals, mode = phase_train_default(itrain, WORK)
+    if mode == "chol":
+        _check(counts() == (n_evals + 2, 0, 0),
+               f"default train route: expected {n_evals} K1 launches for "
+               f"the fit (chol mode) and 2 for its training-set predict, "
+               f"and no K2 or K3; saw (K1, K2, K3) = {counts()}")
+    else:
+        _check(matvec.launches > 0, f"default train route ({mode} mode) "
+               f"launched no K3: (K1, K2, K3) = {counts()}")
+    k3_launches += matvec.launches
+    k1_launches += pairwise.launches
+    torch.cuda.empty_cache()
+
+    # counted run 6, the K2 path: nlml_iterative without a preconditioner
+    zero()
+    k2_launches = phase_k2_path(device, args.seed, itrain, itest, imodel)
+    _check(k2_launches > 0, "the K2 path launched no K2")
+
+    print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        _kernel_entry("gram (K1, fused ExpAns+Bias Gram, N=16384 diag f32)",
+                      "gp_ss_ak_torch/csrc/gram.cu",
+                      "gp_ss_ak_tpu/ops/pairwise.py:42", k1_launches, k1),
+        _kernel_entry("matvec (K2, streamed Gram matvec, N=65536)",
+                      "gp_ss_ak_torch/csrc/matvec.cu",
+                      "gp_ss_ak_tpu/ops/matvec.py:32", k2_launches, k2),
+        _kernel_entry("matmat (K3, streamed Gram matmat, N=65536 B=1024)",
+                      "gp_ss_ak_torch/csrc/matmat.cu",
+                      "gp_ss_ak_tpu/ops/matvec.py:90", k3_launches, k3),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,14 +6,16 @@ gp_ss_ak_tpu, which stays in the repository as the reference. Module
 names mirror gp_ss_ak_tpu's. This package imports torch and numpy,
 never jax and never gp_ss_ak_tpu.
 
-Ported so far: the serving path — data IO and standardization, the
-kernel library, model files, exact Gaussian inference (forward), the
-dense `serve.Predictor`, the matrix-free `serve.IterativePredictor`
-(pivoted-Cholesky whitened batched CG, inference/iterative.py) and the
-CLI's `test` mode with both engines. On a GPU the flagship
-Sum([ExpAns, Bias]) Gram runs through the hand-written CUDA kernel
-csrc/gram.cu (ops/pairwise.py), and the matrix-free operator through
-csrc/matmat.cu (ops/matvec.py).
+Ported so far: the serving and training paths — data IO and
+standardization, the kernel library, model files, exact Gaussian
+inference with its gradients, the host optimizers and `optim.fit`, the
+matrix-free engine (inference/iterative.py: CG, SLQ, the Hutchinson
+gradient), the dense `serve.Predictor`, the matrix-free
+`serve.IterativePredictor`, and the CLI's `train` and `test`. On a GPU
+the flagship Sum([ExpAns, Bias]) Gram runs through the hand-written CUDA
+kernel csrc/gram.cu (ops/pairwise.py), and the matrix-free operator
+through csrc/matmat.cu and csrc/matvec.cu (ops/matvec.py). Entry points
+run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

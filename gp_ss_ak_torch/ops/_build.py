@@ -4,8 +4,9 @@
 per source, all started together, then links the objects into one
 shared library with a plain C interface, loaded with ctypes. Nothing
 here includes PyTorch's headers, so a build takes seconds (on the host
-of an H100 80GB HBM3 card: 4.6-5.0 s this way, 6.5-8.6 s for one nvcc
-over both sources). The library goes
+of an H100 80GB HBM3 card: 4.6-5.0 s this way for gram.cu and
+matmat.cu, against 6.5-8.6 s for one nvcc over both; 4.1-4.2 s with
+matvec.cu added). The library goes
 to `build/torch_kernels/` beside the package (listed in .gitignore),
 named by a hash of the sources and flags so a stale build is never
 reused. The build runs on first use, never at import: machines without
@@ -62,6 +63,10 @@ def _declare(lib) -> None:
     lib.gp_matmat_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                   ptr]
     lib.gp_matmat_f32.restype = i32
+    # x, v, scal, partial, y, n, dp, slab_w, slabs, device, stream
+    lib.gp_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                  i32, i32, ptr]
+    lib.gp_matvec_f32.restype = i32
     lib.gp_cuda_error_string.argtypes = [i32]
     lib.gp_cuda_error_string.restype = ctypes.c_char_p
 

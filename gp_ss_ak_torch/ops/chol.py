@@ -21,6 +21,11 @@ import torch
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of A; NaN lower triangle if A is not
-    positive definite."""
+    positive definite. Under autograd (A requires grad) the NaN fill is
+    out of place, since potrf's backward reads its own output; elsewhere
+    it reuses the factor's buffer."""
     L, info = torch.linalg.cholesky_ex(A)
-    return L.masked_fill_((info != 0)[..., None, None], float("nan")).tril_()
+    bad = (info != 0)[..., None, None]
+    if torch.is_grad_enabled() and A.requires_grad:
+        return L.masked_fill(bad, float("nan")).tril()
+    return L.masked_fill_(bad, float("nan")).tril_()

@@ -1,7 +1,34 @@
-"""Optimization engines. So far only the capability check of the
-matrix-free engine (iterative_fit.supports_iterative), which the
-serving path uses; the optimizers arrive with the training slice."""
+"""Optimization: the host optimizers (bound-constrained L-BFGS, dense
+BFGS, SCG; numpy-only copies of gp_ss_ak_tpu/optim), the training
+entry point `fit` over the dense and matrix-free engines, and the
+matrix-free engine's model check."""
 
-from gp_ss_ak_torch.optim.iterative_fit import supports_iterative
+from gp_ss_ak_torch.optim.api import fit, flat_nlml_fn, make_value_and_grad
+from gp_ss_ak_torch.optim.bfgs import DenseBFGS
+from gp_ss_ak_torch.optim.iterative_fit import (
+    DENSE_MAX_N,
+    make_iterative_value_and_grad,
+    supports_iterative,
+)
+from gp_ss_ak_torch.optim.lbfgsb import (
+    DEFAULT_LOWER,
+    DEFAULT_UPPER,
+    LBFGSB,
+    OptResult,
+)
+from gp_ss_ak_torch.optim.scg import SCG
 
-__all__ = ["supports_iterative"]
+__all__ = [
+    "fit",
+    "DenseBFGS",
+    "flat_nlml_fn",
+    "make_value_and_grad",
+    "make_iterative_value_and_grad",
+    "supports_iterative",
+    "DENSE_MAX_N",
+    "LBFGSB",
+    "SCG",
+    "OptResult",
+    "DEFAULT_LOWER",
+    "DEFAULT_UPPER",
+]

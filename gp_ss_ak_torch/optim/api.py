@@ -1,0 +1,238 @@
+"""Training: glue between GPModel, the NLML and the host
+optimizers (the role of GP_utils::OptimisePars + Opt_Algs::Optimise,
+GP_Utils.cpp:1288-1301 / Opt_pars.h:176-195). Port of
+gp_ss_ak_tpu/optim/api.py.
+
+The objective is a function of the flat hyper vector; its gradient is
+torch autograd of the exact NLML (the QW closed-form adjoint by
+default). Optimizer names mirror the CLI ("LBFGS", "BFGS", "SCG",
+gp_ss_ak.cpp:286-293). The objective runs on the device and in the
+dtype of the model's parameters; one host read per evaluation brings
+back the value and the gradient.
+
+Not ported (each raises, naming its ROADMAP item): the whole-fit device
+optimizer `-o JIT` (optim/jax_lbfgs.py, item 5), mid-fit checkpoints
+(utils/checkpoint.py, item 8) and the segmented evaluator
+(optim/segmented.py, item 9).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import replace
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gp_ss_ak_torch.inference import gaussian
+from gp_ss_ak_torch.model import GPModel
+from gp_ss_ak_torch.optim.bfgs import DenseBFGS
+from gp_ss_ak_torch.optim.iterative_fit import (
+    DENSE_MAX_N,
+    make_iterative_value_and_grad,
+    supports_iterative,
+)
+from gp_ss_ak_torch.optim.lbfgsb import (
+    DEFAULT_LOWER,
+    DEFAULT_UPPER,
+    LBFGSB,
+    OptResult,
+)
+from gp_ss_ak_torch.optim.scg import SCG
+
+JIT_NOT_PORTED = ("the whole-fit device optimizer (-o JIT, "
+                  "optim/jax_lbfgs.py) is not ported to gp_ss_ak_torch "
+                  "yet: ROADMAP item 5")
+
+
+def flat_nlml_fn(model: GPModel, jitter: float = 0.0,
+                 grad_mode: str = "qw"):
+    """f(flat, X, y) -> NLML as a differentiable torch function; data
+    is passed per call, nothing is bound. Defaults to the QW closed-form
+    adjoint (inference/gaussian.QuadLogdet)."""
+    kernel = model.kernel
+    likelihood = model.likelihood
+    nk = kernel.n_params
+    nl = model.lik_hypers.numel()
+
+    def f(flat, X, y):
+        kp = kernel.unpack(flat[:nk])
+        lh = flat[nk : nk + nl]
+        return gaussian.nlml(kernel, kp, lh, X, y, likelihood, jitter,
+                             grad_mode=grad_mode)
+
+    return f
+
+
+def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0,
+                        dtype=None):
+    """Host-callable value_and_grad(flat numpy) -> (float, float64 grad)
+    of the dense NLML, on the model's device (and dtype unless given)."""
+    flat0 = model.pack()
+    dtype = dtype or flat0.dtype
+    device = flat0.device
+    Xd = torch.as_tensor(X, dtype=dtype, device=device)
+    yd = torch.as_tensor(y, dtype=dtype, device=device)
+    f = flat_nlml_fn(model, jitter)
+
+    def value_and_grad(x_np: np.ndarray):
+        flat = torch.tensor(np.asarray(x_np, np.float64), dtype=dtype,
+                            device=device, requires_grad=True)
+        val = f(flat, Xd, yd)
+        (grad,) = torch.autograd.grad(val, flat)
+        out = torch.cat([val.detach().reshape(1), grad]).cpu()
+        return float(out[0]), out[1:].numpy().astype(np.float64)
+
+    return value_and_grad
+
+
+class _TimedVGrad:
+    """Wall-clock wrap that stays transparent: unknown attribute reads
+    (last_cg_iters, last_rel_residual, precond_rank) forward to the
+    inner closure. Each evaluation ends in a host read of its value, so
+    the device work is done when the clock stops."""
+
+    def __init__(self, inner, walls, spans, cg):
+        self.inner = inner
+        self._walls = walls
+        self._spans = spans
+        self._cg = cg
+
+    def __call__(self, x):
+        t0 = time.perf_counter()
+        out = self.inner(x)
+        t1 = time.perf_counter()
+        self._walls.append(t1 - t0)
+        self._spans.append((t0, t1))
+        if getattr(self.inner, "last_cg_iters", None) is not None:
+            self._cg.append((self.inner.last_cg_iters,
+                             self.inner.last_rel_residual))
+        return out
+
+    def __getattr__(self, name):  # missing attrs only
+        return getattr(self.__dict__["inner"], name)
+
+
+def fit(
+    model: GPModel,
+    X,
+    y,
+    optimizer: str = "LBFGS",
+    iters: int = 100,
+    lower: Optional[np.ndarray] = None,
+    upper: Optional[np.ndarray] = None,
+    jitter: float = 0.0,
+    verbose: int = 0,
+    callback=None,
+    checkpoint_path: Optional[str] = None,
+    engine: str = "auto",
+    engine_opts: Optional[dict] = None,
+    timing: Optional[dict] = None,
+    opt_opts: Optional[dict] = None,
+) -> Tuple[GPModel, OptResult]:
+    """Maximize the marginal likelihood over the box [1e-4, 6]^p, on the
+    device of the model's parameters.
+
+    `engine`: "dense" (exact Cholesky NLML, inference/gaussian.py),
+    "iterative" (matrix-free CG + SLQ, optim/iterative_fit.py; flagship
+    model only, float32), or "auto": iterative when N > DENSE_MAX_N, the
+    model supports it and the model lies on a CUDA device (off the card
+    the streamed operator runs its plain version), dense otherwise.
+    `engine_opts` go to make_iterative_value_and_grad.
+
+    Pass a dict as `timing` to receive {"backend_touch_s", "eval_s"
+    (list), "eval_spans", "n_evals", "eval_s_sum", "eval_s_first",
+    "eval_s_steady_median", "pre_first_eval_s", "post_last_eval_s"},
+    and for the iterative engine "cg": (CG iterations, achieved relative
+    residual) per evaluation.
+    `pre_first_eval_s` counts from the end of the backend touch, so the
+    two do not overlap. `opt_opts` go to the optimizer's constructor."""
+    t_enter = time.perf_counter()
+    if checkpoint_path:
+        raise NotImplementedError(
+            "fit(checkpoint_path=...) is not ported to gp_ss_ak_torch yet "
+            "(utils/checkpoint.py): ROADMAP item 8")
+    device = model.pack().device
+    t_ready = t_enter
+    if timing is not None:
+        # the first device touch of a process (context creation) is
+        # environmental: time it apart from the engine's construction
+        torch.zeros((), device=device).item()
+        t_ready = time.perf_counter()
+        timing["backend_touch_s"] = t_ready - t_enter
+    x0 = model.pack().detach().cpu().numpy().astype(np.float64)
+    p = x0.shape[0]
+    lb = np.full(p, DEFAULT_LOWER) if lower is None else np.asarray(lower)
+    ub = np.full(p, DEFAULT_UPPER) if upper is None else np.asarray(upper)
+
+    opts = dict(engine_opts or {})
+    if opts.pop("segmented", False):
+        raise NotImplementedError(
+            "the segmented evaluator (optim/segmented.py) is not ported "
+            "to gp_ss_ak_torch: ROADMAP item 9")
+    eng = engine.lower()
+    n_data = int(np.shape(X)[0])
+    if eng == "auto":
+        eng = ("iterative" if n_data > DENSE_MAX_N
+               and supports_iterative(model) and device.type == "cuda"
+               else "dense")
+        if n_data > DENSE_MAX_N and eng == "dense" and verbose >= 0:
+            import warnings
+
+            warnings.warn(
+                f"engine='auto' picked the dense path at N={n_data} "
+                "(no CUDA device or unsupported model); expect large "
+                "memory cost — pass engine='iterative' to force the "
+                "matrix-free route", stacklevel=2)
+    if eng == "iterative":
+        opts.setdefault("jitter", jitter)
+        vgrad = make_iterative_value_and_grad(model, X, y, **opts)
+    elif eng == "dense":
+        vgrad = make_value_and_grad(model, X, y, jitter)
+    else:
+        raise ValueError(f"Unrecognised engine: {engine}")
+
+    if timing is not None:
+        walls: list = []
+        spans: list = []
+        cg: list = []
+        vgrad = _TimedVGrad(vgrad, walls, spans, cg)
+        timing["eval_s"] = walls
+        timing["eval_spans"] = spans
+        if eng == "iterative":
+            timing["cg"] = cg
+
+    name = optimizer.upper()
+    oo = dict(opt_opts or {})
+    if name in ("JIT", "LBFGS-JIT", "DEVICE"):
+        if eng != "iterative":
+            raise NotImplementedError(JIT_NOT_PORTED)
+        # the matrix-free objective is driven by the host L-BFGS-B, as
+        # in the JAX package
+        name = "LBFGS"
+    if name in ("LBFGS", "LBFGSB", "L-BFGS-B"):
+        opt = LBFGSB(maxiter=iters, verbose=verbose, **oo)
+    elif name == "BFGS":
+        opt = DenseBFGS(maxiter=iters, verbose=verbose, **oo)
+    elif name == "SCG":
+        opt = SCG(maxiter=iters, verbose=verbose, **oo)
+    else:
+        raise ValueError(f"Unrecognised optimiser type: {optimizer}")
+    res = opt.minimize(vgrad, x0, lb, ub, callback=callback)
+    if timing is not None and timing["eval_spans"]:
+        spans_ = timing["eval_spans"]
+        timing["pre_first_eval_s"] = spans_[0][0] - t_ready
+        timing["post_last_eval_s"] = time.perf_counter() - spans_[-1][1]
+        walls = timing["eval_s"]
+        steady = walls[1:] or walls
+        timing["n_evals"] = len(walls)
+        timing["eval_s_sum"] = float(np.sum(walls))
+        timing["eval_s_first"] = float(walls[0])
+        timing["eval_s_steady_median"] = float(np.median(steady))
+    flat0 = model.pack()
+    fitted = model.unpack(torch.as_tensor(res.x, dtype=flat0.dtype,
+                                          device=flat0.device))
+    fitted = replace(fitted, num_data=n_data,
+                     input_dim=int(np.shape(X)[1]))
+    return fitted, res

@@ -1,13 +1,47 @@
-"""The matrix-free engine's model check (port of
-gp_ss_ak_tpu/optim/iterative_fit.py:43-52). The fit itself
-(`make_iterative_value_and_grad`, `DENSE_MAX_N`) arrives with the
-training slice."""
+"""Matrix-free fit engine: hyperparameter value and gradient in the FLAT
+space via CG + stochastic Lanczos (inference/iterative.py), chained back
+through the metric map so the box-constrained optimizers (optim/lbfgsb.py,
+optim/scg.py) drive it unchanged. Port of
+gp_ss_ak_tpu/optim/iterative_fit.py for the Gaussian likelihood.
+
+  flat = [8 ExpAns params, bias, sn2]
+  Xm(angles, widths)  = (X - mean X) @ M            (ops/fused.py)
+  NLML(Xm, sigma, bias, sn2)                        (iterative.py)
+  d NLML/d angles,widths = autograd of Xm's map against d NLML/d Xm
+  d NLML/d sigma,bias,sn2 = direct from the engine
+
+The SLQ and Hutchinson probes are drawn ONCE per fit, from `seed` on the
+data's device (or injected), so the objective the line search sees is
+deterministic: a biased but self-consistent estimate, the standard
+BBMM/GPyTorch trick. (The JAX package gets the same by reusing one PRNG
+key; a torch.Generator advances on every draw, so the port keeps the
+drawn matrices instead.)
+"""
 
 from __future__ import annotations
 
-from gp_ss_ak_torch.inference.likelihoods import Gaussian
+import numpy as np
+import torch
+from torch.autograd.profiler import record_function
+
+from gp_ss_ak_torch.inference.iterative import (
+    IterativeGP,
+    auto_precond_rank,
+    nlml_and_grad_iterative,
+    rademacher,
+)
+from gp_ss_ak_torch.inference.likelihoods import (
+    LIK_WARPGAUSS,
+    WARPED_NOT_PORTED,
+    Gaussian,
+)
 from gp_ss_ak_torch.model import GPModel
-from gp_ss_ak_torch.ops.fused import _is_flagship
+from gp_ss_ak_torch.ops.fused import _is_flagship, mapped_points
+
+#: above this N, fit(engine="auto") prefers the matrix-free route on a
+#: GPU (iterative_fit.py:37-40: TPU-era, sized for a 16 GB chip; kept
+#: for parity, still to be re-derived for an 80 GB H100)
+DENSE_MAX_N = 16384
 
 
 def supports_iterative(model: GPModel) -> bool:
@@ -19,3 +53,87 @@ def supports_iterative(model: GPModel) -> bool:
     return (_is_flagship(model.kernel)
             and isinstance(lik, Gaussian)
             and model.n_params == model.kernel.n_params + lik.n_hypers)
+
+
+def make_iterative_value_and_grad(
+    model: GPModel,
+    X,
+    y,
+    seed: int = 0,
+    probes: int = 8,
+    lanczos_iters: int = 32,
+    cg_tol: float = 1e-4,
+    cg_maxiter: int = 800,
+    chunk: int = 1024,
+    jitter: float = 0.0,
+    precond_rank=None,
+    slq_probes: int = 64,
+    mode: str = "auto",
+    Z_logdet=None,
+    Z_trace=None,
+):
+    """Host-callable value_and_grad(flat numpy) -> (float, float64 grad)
+    over the matrix-free engine, in float32 on the device of the model's
+    parameters.
+
+    `jitter` is folded into the operator's noise (sn2 + jitter).
+    `precond_rank` > 0 preconditions every solve with a rank-k pivoted
+    Cholesky (0 disables it; None picks auto_precond_rank(n)). `mode`
+    selects the operator (inference.iterative.choose_mode). Z_logdet
+    (n, slq_probes) and Z_trace (n, probes) inject the probes; otherwise
+    they are drawn from `seed`. The closure carries `.last_cg_iters`,
+    `.last_rel_residual` and `.precond_rank`; each call is a profiler
+    range, "iterative_fit.value_and_grad"."""
+    if getattr(model.likelihood, "kind", None) == LIK_WARPGAUSS:
+        raise NotImplementedError(WARPED_NOT_PORTED)
+    if not supports_iterative(model):
+        raise ValueError(
+            "iterative engine supports only Sum([ExpAns, Bias]) + "
+            f"Gaussian likelihood; got {model.kernel!r} / "
+            f"{type(model.likelihood).__name__}")
+    f32 = torch.float32
+    device = model.pack().device
+    kernel = model.kernel
+    expans = kernel.children[0]
+    nk = kernel.n_params
+    Xd = torch.as_tensor(X, dtype=f32, device=device)
+    yd = torch.as_tensor(y, dtype=f32, device=device)
+    n = Xd.shape[0]
+    if Z_logdet is None or Z_trace is None:
+        key_logdet = torch.Generator(device=device).manual_seed(seed)
+        key_trace = torch.Generator(device=device).manual_seed(seed + 1)
+        if Z_logdet is None:
+            Z_logdet = rademacher(key_logdet, (n, slq_probes), device)
+        if Z_trace is None:
+            Z_trace = rademacher(key_trace, (n, probes), device)
+    Z_logdet = torch.as_tensor(Z_logdet, dtype=f32, device=device)
+    Z_trace = torch.as_tensor(Z_trace, dtype=f32, device=device)
+
+    @record_function("iterative_fit.value_and_grad")
+    def value_and_grad(x_np: np.ndarray):
+        flat = torch.tensor(np.asarray(x_np, np.float64), dtype=f32,
+                            device=device, requires_grad=True)
+        ep, bp = kernel.unpack(flat[:nk])
+        sn2 = flat[nk] + jitter
+        Xm = mapped_points(expans, ep, Xd)
+        it_gp = IterativeGP(Xm=Xm.detach(), sigma=ep["Sigma"].detach(),
+                            bias=bp["Sigma"].detach(), sn2=sn2.detach())
+        val, (ds, db, dsn2, dXm), stats = nlml_and_grad_iterative(
+            it_gp, yd, None, None, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+            probes=probes, lanczos_iters=lanczos_iters, chunk=chunk,
+            precond_rank=precond_rank, slq_probes=slq_probes, mode=mode,
+            Z_logdet=Z_logdet, Z_trace=Z_trace)
+        # the chain rule in one backward: Xm's map (angles, widths) plus
+        # the direct sigma / bias / sn2 terms
+        surrogate = (torch.sum(Xm * dXm) + ep["Sigma"] * ds
+                     + bp["Sigma"] * db + sn2 * dsn2)
+        (g,) = torch.autograd.grad(surrogate, flat)
+        value_and_grad.last_cg_iters = int(stats.cg_iters)
+        value_and_grad.last_rel_residual = float(stats.rel_residual)
+        return float(val), g.detach().cpu().numpy().astype(np.float64)
+
+    value_and_grad.last_cg_iters = None
+    value_and_grad.last_rel_residual = None
+    value_and_grad.precond_rank = (
+        auto_precond_rank(n) if precond_rank is None else precond_rank)
+    return value_and_grad

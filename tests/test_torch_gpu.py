@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels K1 and K3 on the card (marker `gpu`).
+"""The hand-written CUDA kernels K1, K2 and K3, and the training path,
+on the card (marker `gpu`).
 
 Every test here needs a CUDA device and skips without one; the check
 runs inside the fixture, never at import. On a machine with a card and
@@ -17,7 +18,12 @@ n, as ||V||_1 does. TOL_K3 is chip_smoke.py's, set from readings on the
 card between the kernel's worst column and a TF32 product's best (which
 it must reject there). The card tests add 4 float32 ulps of the output,
 which dominate at tiny n: at n = 1 the output is (s2 + bias + sn2) * v,
-and its float32 roundings alone reach ~2 ulps.
+and its float32 roundings alone reach ~2 ulps. K2 (one vector) is held
+to K3's gate; against K3 at B = 1 (another summation order) to twice it.
+The autograd Function and a 3-iteration dense fit run in float64 on the
+card and on the CPU: the forward Grams differ by the kernel's direct
+differences against the plain version's expansion (1e-10 of the scale),
+the gradients and the fitted hyperparameters by round-off.
 """
 
 import os
@@ -110,8 +116,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def test_golden_through_the_kernel_in_float64(cuda):
-    model = load_model(os.path.join(GOLDEN, "model")).to(torch.float64,
-                                                         cuda)
+    model = load_model(os.path.join(GOLDEN, "model"), device=cuda)
     stats = Statistics.load(os.path.join(GOLDEN, "model_Statistics.txt"))
     Xtr, ytr = read_data(os.path.join(GOLDEN, "train.txt"))
     Xte, _ = read_data(os.path.join(GOLDEN, "test.txt"))
@@ -210,3 +215,121 @@ def test_iterative_predictor_on_cuda_launches_k3(cuda):
     mu_d, var_d = Predictor(model, X, y)(Xs)
     np.testing.assert_allclose(mu, mu_d, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(var, var_d, rtol=5e-3, atol=5e-4)
+
+
+# --- K2, the streamed Gram matvec, and the training path on the card ---
+
+@pytest.mark.parametrize("n,d", [(1, 3), (37, 3), (130, 4), (1000, 3),
+                                 (4097, 2), (5000, 5), (20000, 3)])
+def test_matvec_kernel_matches_plain(cuda, n, d):
+    Xk, scal, V = _matmat_case(n, 1, d, cuda, seed=n + d)
+    v = V[:, 0].contiguous()
+    before = matvec.matvec_launches
+    y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+    torch.cuda.synchronize()
+    assert matvec.matvec_launches == before + 1
+    assert y.dtype == torch.float32 and tuple(y.shape) == (n,)
+    ref = matvec.streamed_matvec_plain(Xk.double(), scal.double(), BIAS,
+                                       SN2, v.double())
+    tol = (TOL_K3 * SCALE * v.double().abs().sum()
+           + 4 * torch.finfo(torch.float32).eps * ref.abs().max())
+    assert (y.double() - ref).abs().max().item() <= tol.item()
+
+
+def test_matvec_kernel_is_repeatable_and_matches_k3(cuda):
+    # no atomics: two passes give the same bits; K3 at B = 1 computes
+    # the same function with another summation order
+    Xk, scal, V = _matmat_case(9000, 1, 3, cuda, seed=9)
+    v = V[:, 0].contiguous()
+    y1 = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+    y2 = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+    assert torch.equal(y1, y2)
+    y3 = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)[:, 0]
+    tol = 2 * TOL_K3 * SCALE * v.abs().sum().item()
+    assert (y1 - y3).abs().max().item() <= tol
+
+
+def test_matvec_diagonal_is_exactly_s2(cuda):
+    n = 700
+    Xk, scal, _ = _matmat_case(n, 1, 3, cuda, seed=4)
+    for i in (0, 255, 256, 511, 512, 699):
+        e = torch.zeros(n, device=cuda)
+        e[i] = 1.0
+        y = matvec.streamed_matvec(Xk, scal, 0.0, 0.0, e)
+        assert y[i].item() == scal.item()
+
+
+def test_matvec_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    Xk, scal, V = _matmat_case(16, 1, 3, cuda, seed=5)
+    v = V[:, 0].contiguous()
+    with pytest.raises(TypeError):
+        matvec.streamed_matvec(Xk, scal, BIAS, SN2, v.double())
+    with pytest.raises(TypeError):
+        matvec.streamed_matvec(Xk.cpu(), scal, BIAS, SN2, v)
+    with pytest.raises(ValueError):
+        matvec.streamed_matvec(Xk, scal, BIAS, SN2, V[:, :1])    # 2-D
+    with pytest.raises(ValueError):
+        matvec.streamed_matvec(Xk, scal, BIAS, SN2, v[:8].contiguous())
+    with pytest.raises(ValueError):
+        matvec.streamed_matvec(Xk[:, :3].contiguous(), scal, BIAS, SN2, v)
+
+
+def test_nlml_iterative_without_preconditioner_launches_k2(cuda):
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    Xk, _, V = _matmat_case(600, 1, 3, cuda, seed=6)
+    X = Xk[:, :3].contiguous()
+    y = torch.sin(3 * X[:, 0])
+    gp = ti.IterativeGP(X, torch.tensor(SIGMA, device=cuda),
+                        torch.tensor(BIAS, device=cuda),
+                        torch.tensor(0.5, device=cuda))
+    key = torch.Generator(device=cuda).manual_seed(0)
+    k2, k3 = matvec.matvec_launches, matvec.launches
+    val, alpha, it = ti.nlml_iterative(gp, y, key, cg_tol=1e-5,
+                                       precond_rank=0, mode="stream")
+    assert matvec.matvec_launches - k2 == it + 1
+    assert matvec.launches - k3 == 32          # the SLQ's Lanczos steps
+    op = matvec.MatvecOperator(X, SIGMA, BIAS, 0.5)
+    res = op.matmat(alpha[:, None])[:, 0] - y
+    assert (res.norm() / y.norm()).item() <= 2e-5
+    assert np.isfinite(val.item())
+
+
+def test_fused_gram_autograd_on_cuda_matches_cpu(cuda):
+    from gp_ss_ak_torch.ops.fused import fused_expans_bias_A
+
+    X = _points(300, 3, cuda, seed=8)
+    G = torch.randn(300, 300, dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (
+            X, torch.tensor(SIGMA, dtype=torch.float64),
+            torch.tensor(BIAS, dtype=torch.float64),
+            torch.tensor(SN2, dtype=torch.float64))]
+        A = fused_expans_bias_A(*leaves)
+        out[dev.type] = (A.detach().cpu(), [g.cpu() for g in
+                         torch.autograd.grad((A * G.to(dev)).sum(), leaves)])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-10 * SCALE)
+    for gc, gp in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(gc, gp, rtol=1e-9, atol=1e-9)
+
+
+def test_dense_fit_on_cuda_matches_cpu(cuda):
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.optim import fit
+
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-1, 1, (128, 3))
+    y = np.sin(X @ np.array([3.0, 1.0, 2.0]))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = default_model(3, dtype=torch.float64, device=dev)
+        fitted, r = fit(model, X, y, iters=3, engine="dense")
+        res[dev.type] = (fitted.pack().cpu().numpy(), r)
+    (xc, rc), (xp, rp) = res["cuda"], res["cpu"]
+    assert (rc.stop_reason, rc.n_iters, rc.n_evals) == \
+        (rp.stop_reason, rp.n_iters, rp.n_evals)
+    np.testing.assert_allclose(xc, xp, rtol=1e-8)
+    assert rc.fun == pytest.approx(rp.fun, rel=1e-10)

@@ -127,7 +127,7 @@ class TestGolden:
     """tests/golden through the port (same tolerances as test_golden)."""
 
     def setup_method(self):
-        self.model = tm.load_model(os.path.join(GOLDEN, "model"))
+        self.model = tm.load_model(os.path.join(GOLDEN, "model"), device="cpu")
         self.stats = Statistics.load(
             os.path.join(GOLDEN, "model_Statistics.txt"))
         Xtr, ytr = read_data(os.path.join(GOLDEN, "train.txt"))

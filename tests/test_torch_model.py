@@ -22,7 +22,7 @@ CPU = torch.device("cpu")
 
 def test_golden_model_loads_to_the_same_flat_vector():
     mj = jm.load_model(GOLDEN)
-    mt = tm.load_model(GOLDEN)
+    mt = tm.load_model(GOLDEN, device="cpu")
     np.testing.assert_array_equal(mt.pack().numpy(), np.asarray(mj.pack()))
     assert repr(mt.kernel) == repr(mj.kernel)
     assert (mt.input_dim, mt.output_dim, mt.num_data) == \
@@ -37,7 +37,7 @@ def test_golden_model_loads_to_the_same_flat_vector():
 def test_save_model_byte_identical(case, tmp_path):
     rng = np.random.default_rng(5)
     if case == "golden":
-        mj, mt = jm.load_model(GOLDEN), tm.load_model(GOLDEN)
+        mj, mt = jm.load_model(GOLDEN), tm.load_model(GOLDEN, device="cpu")
     elif case == "float32":
         mj = jm.default_model(3, dtype=jnp.float32)
         mt = tm.default_model(3, dtype=torch.float32, device=CPU)
@@ -48,18 +48,18 @@ def test_save_model_byte_identical(case, tmp_path):
         flat = np.asarray(mj.pack()) * rng.uniform(0.5, 1.5,
                                                   size=mj.n_params)
         mj = mj.unpack(jnp.asarray(flat))
-        mt = tm.default_model(d, kernel_names=names).unpack(
+        mt = tm.default_model(d, kernel_names=names, device="cpu").unpack(
             torch.as_tensor(flat, dtype=F64))
     jm.save_model(mj, str(tmp_path / "j"))
     tm.save_model(mt, str(tmp_path / "t"))
     assert (tmp_path / "t").read_bytes() == (tmp_path / "j").read_bytes()
-    back = tm.load_model(str(tmp_path / "t"))
+    back = tm.load_model(str(tmp_path / "t"), device="cpu")
     np.testing.assert_array_equal(back.pack().numpy(),
                                   mt.pack().to(F64).numpy())
 
 
 def test_golden_file_roundtrips_byte_identical(tmp_path):
-    tm.save_model(tm.load_model(GOLDEN), str(tmp_path / "m"))
+    tm.save_model(tm.load_model(GOLDEN, device="cpu"), str(tmp_path / "m"))
     with open(GOLDEN, "rb") as f:
         assert (tmp_path / "m").read_bytes() == f.read()
 
@@ -87,7 +87,7 @@ def test_from_flat_rejects_short_vector():
 
 
 def test_pack_unpack_to():
-    m = tm.default_model(3)
+    m = tm.default_model(3, device="cpu")
     flat = m.pack()
     assert m.n_params == flat.numel() == 10
     m2 = m.unpack(flat * 2.0)
@@ -106,7 +106,7 @@ def test_warped_model_file_is_not_ported(tmp_path):
                  lik_hypers=jnp.asarray(wlik.default_hypers(jnp.float64)))
     jm.save_model(mj, str(tmp_path / "w"))
     with pytest.raises(NotImplementedError, match="warping.py"):
-        tm.load_model(str(tmp_path / "w"))
+        tm.load_model(str(tmp_path / "w"), device="cpu")
     with pytest.raises(NotImplementedError, match="warping.py"):
         make_likelihood(LIK_WARPGAUSS)
     with pytest.raises(ValueError):

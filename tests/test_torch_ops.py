@@ -105,7 +105,7 @@ def test_fused_cross_gram_matches_jax(d):
 
 
 def test_non_flagship_takes_the_generic_path():
-    m = tm.default_model(3, kernel_names=["RBF"])
+    m = tm.default_model(3, kernel_names=["RBF"], device="cpu")
     X = torch.zeros((8, 3), dtype=F64)
     assert tfused.maybe_fused_A(m.kernel, m.kernel_params, 0.1, X) is None
     assert tfused.fused_cross_gram(m.kernel, m.kernel_params, X, X) is None

@@ -92,7 +92,8 @@ def test_cli_test_matches_jax_cli(golden_case, capsys):
     jax_lines = capsys.readouterr().out.strip().splitlines()[-2:]
     proc = subprocess.run(
         [sys.executable, "-m", "gp_ss_ak_torch", "test", "--float64",
-         "--no-plot", test, model, train, str(tmp / "torch_pred.txt")],
+         "--device", "cpu", "--no-plot", test, model, train,
+         str(tmp / "torch_pred.txt")],
         capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     torch_lines = proc.stdout.strip().splitlines()[-2:]
@@ -110,8 +111,8 @@ def test_cli_test_matches_jax_cli(golden_case, capsys):
 
 def test_cli_verbose_labels_and_default_output(golden_case, capsys):
     test, model, train, _ = golden_case
-    assert torch_main(["-v", "1", "test", "--no-plot", "--float64", test,
-                       model, train]) == 0
+    assert torch_main(["-v", "1", "test", "--no-plot", "--float64",
+                       "--device", "cpu", test, model, train]) == 0
     out = capsys.readouterr().out
     assert "Mean Square Error of testing: " in out
     assert "Var MSE Test: " in out
@@ -122,8 +123,9 @@ def test_cli_iterative_engine_is_not_ported(golden_case, capsys):
     # asserts that the engine IS ported: --engine iterative runs the
     # IterativePredictor, exits 0 and writes its predictions
     test, model, train, tmp = golden_case
-    rc = torch_main(["test", "--no-plot", "--engine", "iterative", test,
-                     model, train, str(tmp / "p.txt")])
+    rc = torch_main(["test", "--no-plot", "--engine", "iterative",
+                     "--device", "cpu", test, model, train,
+                     str(tmp / "p.txt")])
     assert rc == 0
     assert "not ported" not in capsys.readouterr().err
     table = np.loadtxt(tmp / "p.txt")
@@ -147,7 +149,7 @@ def ore_case(tmp_path):
     write_data(str(tmp_path / "test.txt"), X[400:], y[400:])
     _, _, stats = prepare(X[:400], y[:400], MODE_SYMMETRIC)
     stats.save(str(tmp_path / "model_Statistics.txt"))
-    golden = tm.load_model(os.path.join(GOLDEN, "model"))
+    golden = tm.load_model(os.path.join(GOLDEN, "model"), device="cpu")
     tm.save_model(dataclasses.replace(
         golden, num_data=400,
         lik_hypers=torch.tensor([0.016], dtype=F64)),
@@ -163,8 +165,8 @@ def test_cli_iterative_matches_jax_cli(ore_case, capsys):
     assert jax_main(args + [str(tmp / "jax_pred.txt")]) == 0
     jax_lines = capsys.readouterr().out.strip().splitlines()[-2:]
     proc = subprocess.run(
-        [sys.executable, "-m", "gp_ss_ak_torch", *args,
-         str(tmp / "torch_pred.txt")],
+        [sys.executable, "-m", "gp_ss_ak_torch", *args[:1], "--device",
+         "cpu", *args[1:], str(tmp / "torch_pred.txt")],
         capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     torch_lines = proc.stdout.strip().splitlines()[-2:]
@@ -197,13 +199,13 @@ def test_cli_auto_engine_below_threshold_runs_dense(ore_case, monkeypatch):
     monkeypatch.setattr(serve, "IterativePredictor", refuse)
     test, model, train, tmp = ore_case
     assert 400 <= cli.ITERATIVE_MIN_N
-    assert torch_main(["test", "--no-plot", test, model, train,
-                       str(tmp / "auto.txt")]) == 0
+    assert torch_main(["test", "--no-plot", "--device", "cpu", test, model,
+                       train, str(tmp / "auto.txt")]) == 0
     # and past the threshold auto does pick it
     monkeypatch.setattr(cli, "ITERATIVE_MIN_N", 399)
     with pytest.raises(AssertionError, match="picked the iterative"):
         cli.cmd_test(cli._build_parser().parse_args(
-            ["test", "--no-plot", test, model, train,
+            ["test", "--no-plot", "--device", "cpu", test, model, train,
              str(tmp / "auto2.txt")]))
 
 
@@ -211,10 +213,11 @@ def test_cli_user_errors_exit_1(golden_case, tmp_path, capsys):
     test, model, train, _ = golden_case
     bad = tmp_path / "bad.txt"
     bad.write_text("1\t2\t0.5\n3\t4\t0.7\n")   # 2 inputs, model has 3
-    assert torch_main(["test", "--no-plot", str(bad), model, train]) == 1
-    assert "Incorrect dimension" in capsys.readouterr().err
-    assert torch_main(["test", "--no-plot", str(tmp_path / "nope.txt"),
+    assert torch_main(["test", "--no-plot", "--device", "cpu", str(bad),
                        model, train]) == 1
+    assert "Incorrect dimension" in capsys.readouterr().err
+    assert torch_main(["test", "--no-plot", "--device", "cpu",
+                       str(tmp_path / "nope.txt"), model, train]) == 1
     err = capsys.readouterr().err
     assert "Error" in err and "Traceback" not in err
 
@@ -227,6 +230,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import gp_ss_ak_torch, gp_ss_ak_torch.cli, gp_ss_ak_torch.serve\n"
         "import gp_ss_ak_torch.ops._build, gp_ss_ak_torch.ops.matvec\n"
         "import gp_ss_ak_torch.inference.iterative, gp_ss_ak_torch.optim\n"
+        "import gp_ss_ak_torch.entry, gp_ss_ak_torch.utils\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

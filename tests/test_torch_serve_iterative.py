@@ -120,7 +120,7 @@ def test_rank_zero_takes_plain_cg():
 
 
 def test_rejects_non_flagship():
-    model = tm.default_model(3, kernel_names=["RBF"])
+    model = tm.default_model(3, kernel_names=["RBF"], device="cpu")
     with pytest.raises(ValueError):
         tserve.IterativePredictor(model, np.zeros((8, 3)), np.zeros(8))
 
@@ -135,7 +135,7 @@ class _WarpedStandIn:
 
 
 def test_warped_is_not_ported():
-    model = tm.default_model(3)
+    model = tm.default_model(3, device="cpu")
     model = replace(model, likelihood=_WarpedStandIn(),
                     lik_hypers=torch.zeros(4, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="warping.py"):
