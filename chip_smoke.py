@@ -3,17 +3,23 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
+    python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
   2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
      (csrc/matvec.cu) and K3 (csrc/matmat.cu) into one library, one nvcc
-     per source;
+     per source; ptxas's register report (no spills in K3's wide tile)
+     and the HMMA count of K3's SASS (cuobjdump);
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
-  4. K3 against its plain version in float64, at ragged sizes and at the
-     matrix-free path's shapes, with a TF32 control that the same gate
-     must reject, plus timings and a cuBLAS yardstick on a prebuilt K;
+  4. K3 against its plain version in float64, at ragged sizes, at the
+     edges of its four tiles and at N = 65536 at every width the main
+     path uses, with a TF32 control that the same gate must reject and a
+     3xTF32 control that it must accept, equal bits across passes and
+     tiles, plus timings at those widths (and B = 65, the wide tile's
+     first), the SM clock while the widest runs, and a cuBLAS yardstick
+     on a prebuilt K;
   5. K2 against its plain version in float64 at ragged sizes and at
      N = 16384, 32768 (the K2 path's) and 65536, the same gate and TF32
      control, two passes for equal bits, and its time beside its bound
@@ -42,6 +48,9 @@ Phases, each of which raises on failure (nothing is caught):
      dense training-set predict, profiled, with its peak memory;
  14. the K2 path: `nlml_iterative(precond_rank=0, mode="stream")` at
      N = 32768, its residual through K3 and chol mode's exact value.
+Every bound is the largest of four terms (`bound`): bytes, FP32 work
+outside any product, SFU work and the product on the tensor cores at
+float32 accuracy; the line says which term sets it.
 Each counted path runs with the launch counts set to 0 just before it
 and read just after. The line before the last is the JSON kernel report;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing
@@ -53,11 +62,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib.metadata
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -100,8 +111,11 @@ MODE_CG_TOL = 1e-6              # that test's CG tolerance
 # round-off, not the solves), so the limit sits ~6x above it
 MODE_XM_REL = 1e-2
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
-# HBM bytes/s and FP32 outside the tensor cores, flop/s
-PEAK_BYTES_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+# HBM bytes/s, FP32 outside the tensor cores and dense TF32, flop/s; the
+# SFU's rsqrt and ex2 per SM per clock (sm_90), its rate set by the
+# card's SM count and maximum SM clock (card_rates)
+PEAK_BYTES_S, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
+SFU_PER_SM_CLOCK = 16
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
@@ -146,30 +160,70 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that moves `nbytes` (each input read once, each output written once)
-    and does `flops` FP32 operations."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+@functools.cache
+def card_rates():
+    """{"sms": SM count, "clock_hz": maximum SM clock} of card 0, for the
+    SFU term of `bound`."""
+    import torch
+
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "clock_hz": float(mhz) * 1e6}
 
 
-def gram_flops(n: int, m: int, d: int) -> float:
-    """FP32 operations of K1's n*m Gram entries over d features: d
-    differences and d multiply-adds (2 each) for the distance, the scale
-    by s2 and the bias add; the sqrt and exp run on the SFU and are not
-    counted."""
-    return float(n) * m * (3 * d + 2)
+def bound(work, sms: int, clock_hz: float):
+    """(bound_ms, term): the least time the card could take for `work` =
+    (bytes moved, each input read once and each output written once;
+    FP32 operations outside any product; SFU operations; product
+    operations at float32 accuracy on the tensor cores, three TF32
+    products each), the largest of its four terms, and which term it
+    is: "bytes", "FP32", "SFU" or "tensor".
+
+    The SFU term prices each rsqrt and ex2 at the MUFU unit's 16 per SM
+    per clock, so it is a floor only for a kernel that computes both on
+    MUFU. A kernel can move part of its ex2 onto the FP32 pipes as a
+    polynomial (FlashAttention-4 does), whose combined rate is higher;
+    this term does not count that, so it can stand above such a
+    kernel's true floor."""
+    nbytes, fp32, sfu, tensor = work
+    terms = {"bytes": nbytes / PEAK_BYTES_S,
+             "FP32": fp32 / PEAK_FP32_FLOPS,
+             "SFU": sfu / (sms * SFU_PER_SM_CLOCK * clock_hz),
+             "tensor": tensor / PEAK_TF32_FLOPS}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, term
 
 
-def streamed_flops(n: int, d: int, b: int, scaled: bool) -> float:
-    """FP32 operations of one streamed pass over the n*n Gram entries
-    against b columns: the distance (3d, as in gram_flops) and a
-    multiply-add with each column (2b). `scaled`: the kernel multiplies
-    each entry by s2 (K3); K2 scales each output once instead, and
-    neither adds the bias, which the caller applies."""
-    return float(n) * n * (3 * d + 2 * b + (1 if scaled else 0))
+def gram_work(n: int, m: int, d: int):
+    """K1's work for n*m Gram entries over d features: the output written
+    once and the points read once; 3d + 2 FP32 operations an entry (d
+    differences and d multiply-adds, 2 each, for the distance, the scale
+    by s2 and the bias add); an rsqrt and an ex2 an entry on the SFU."""
+    return 4.0 * (n * m + (n + m) * d), float(n) * m * (3 * d + 2), \
+        2.0 * n * m, 0.0
+
+
+def matvec_work(n: int, d: int):
+    """K2's work for one pass over the n*n Gram entries: the points
+    (padded to a float4), v and y once; 3d + 2 FP32 operations an entry
+    (the distance as in gram_work and the multiply-add with v; s2 scales
+    each output once); two SFU operations an entry; the product 2 n^2
+    priced as three TF32 products."""
+    return 4.0 * n * (4 + 2), float(n) * n * (3 * d + 2), 2.0 * n * n, \
+        3 * 2.0 * n * n
+
+
+def matmat_work(n: int, d: int, b: int):
+    """K3's work for one pass over the n*n Gram entries against b
+    columns: the points (padded to a float4), V and Y once; 3d + 1 FP32
+    operations an entry outside the product (the distance, the s2
+    scale); two SFU operations an entry; the product 2 n^2 b priced as
+    three TF32 products."""
+    return 4.0 * n * (4 + 2 * b), float(n) * n * (3 * d + 1), \
+        2.0 * n * n, 3 * 2.0 * n * n * b
 
 
 def phase_device():
@@ -186,7 +240,8 @@ def phase_device():
           f"{_nvcc_version()}, triton {triton}, "
           f"python {sys.version.split()[0]}")
     print(f"device: {torch.cuda.get_device_name(0)} "
-          f"(count {torch.cuda.device_count()})")
+          f"(count {torch.cuda.device_count()}); {card_rates()['sms']} SMs, "
+          f"max SM clock {card_rates()['clock_hz'] / 1e6:.0f} MHz")
 
 
 def phase_build():
@@ -197,10 +252,32 @@ def phase_build():
     print(f"build: K1, K2 and K3 loaded in {time.perf_counter() - t0:.3f} s "
           f"(nvcc, one process per source, then link: "
           f"{_build.build_info.get('seconds', 0.0):.3f} s)")
-    for line in _build.build_info.get("log", "").splitlines():
+    log = _build.build_info.get("log", "")
+    for line in log.splitlines():
         if ("Compiling entry" in line or "registers" in line
                 or "spill" in line):
             print("  ptxas:", line.strip())
+    # K3's wide tile: no spills in ptxas's report, and HMMA in its SASS
+    spills = re.findall(r"Function properties for (\S*matmat_tc_kernel\S*)"
+                        r"\s+\d+ bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log)
+    _check(len(spills) > 0, "ptxas reported no K3 wide tile")
+    for name, st, ld in spills:
+        _check(st == ld == "0", f"K3 wide tile {name} spills: {st} bytes "
+               f"stored, {ld} loaded")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.load()._name],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "matmat" in name:
+            hmma[name] = part.count("HMMA")
+    print(f"build: HMMA instructions in K3's SASS, by kernel: {hmma}")
+    wide = [c for k, c in hmma.items() if "matmat_tc_kernel" in k]
+    _check(len(wide) == len(spills) and min(wide) > 0,
+           "K3's wide tile issues no HMMA")
 
 
 def phase_k1(device, seed: int, cases=None, time_shapes=True):
@@ -272,11 +349,10 @@ def phase_k1(device, seed: int, cases=None, time_shapes=True):
                   f"{str(dtype).split('.')[-1]}: kernel {ms:.4f} ms "
                   f"({gbs:.0f} GB/s of output), plain {plain_ms:.4f} ms")
             if dtype == torch.float32 and m is None:
-                # bound: the N^2 float32 output written once
-                b_ms, b_by = bound(4.0 * N_TRAIN * (N_TRAIN + 2 * 3),
-                                   gram_flops(N_TRAIN, N_TRAIN, 3))
+                b_ms, b_by = bound(gram_work(N_TRAIN, N_TRAIN, 3),
+                                   **card_rates())
                 print(f"K1 bound {N_TRAIN}^2 diag f32: {b_ms:.4f} ms "
-                      f"({b_by}); kernel at {b_ms / ms:.3f} of it")
+                      f"(set by {b_by}); kernel at {b_ms / ms:.3f} of it")
                 report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by)
             del X, Y
@@ -289,6 +365,15 @@ def _round_tf32(t):
 
     bits = t.float().contiguous().view(torch.int32)
     return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def _gram64(X, s2, rows: slice):
+    """Float64 Gram rows of K3's function (exact s2 diagonal)."""
+    import torch
+
+    K = s2 * torch.exp(-torch.cdist(X[rows], X))
+    K.diagonal(offset=rows.start).fill_(s2)
+    return K
 
 
 def tf32_control(Xk, scal, V):
@@ -304,82 +389,195 @@ def tf32_control(Xk, scal, V):
     Vt = _round_tf32(V).double()
     Y = torch.empty_like(V64)
     for s in range(0, n, chunk):
-        K = s2 * torch.exp(-torch.cdist(X[s:s + chunk], X))
-        K.diagonal(offset=s).fill_(s2)
+        K = _gram64(X, s2, slice(s, s + chunk))
         Y[s:s + chunk] = _round_tf32(K).double() @ Vt
         del K
     return Y + BIAS * V64.sum(dim=0, keepdim=True) + SN2 * V64
 
 
-def phase_k3(device, seed: int):
-    """K3 vs its plain version in float64 on the same inputs, a TF32
-    control that the same gate must reject, then CUDA event times at the
-    matrix-free path's shapes; returns the report."""
+def _split_tf32(t):
+    """(hi, lo) of float32 values in float64: hi = t rounded to TF32,
+    lo = (t - hi) rounded to TF32, as K3's wide tile splits them."""
+    t = t.float()
+    hi = _round_tf32(t)
+    return hi.double(), _round_tf32(t - hi).double()
+
+
+def split_tf32_control(Xk, scal, V):
+    """K3's function as the wide tile's 3xTF32 product gives it, with no
+    accumulation error: the float32 Gram entries and V each split into
+    TF32 parts (hi, lo), then K_hi V_hi + K_hi V_lo + K_lo V_hi summed
+    in float64. The K3 gate must accept it."""
     import torch
 
-    from gp_ss_ak_torch.ops import matvec, pairwise
+    from gp_ss_ak_torch.ops import matvec
+
+    n, chunk = Xk.shape[0], matvec.PLAIN_CHUNK
+    X, s2, V64 = Xk.double(), scal[0].double(), V.double()
+    Vh, Vl = _split_tf32(V)
+    Y = torch.empty_like(V64)
+    for s in range(0, n, chunk):
+        Kh, Kl = _split_tf32(_gram64(X, s2, slice(s, s + chunk)))
+        Y[s:s + chunk] = Kh @ Vh + (Kh @ Vl + Kl @ Vh)
+        del Kh, Kl
+    return Y + BIAS * V64.sum(dim=0, keepdim=True) + SN2 * V64
+
+
+#: the widths the main path gives K3 at N_ITER_TRAIN (setup and whitened
+#: CG at 1, the fit's whitened CG at 9, the SLQ at 64, a 256-query
+#: request, the CLI's variance solves at 1024), plus 65, the wide tile's
+#: first width, for the middle/wide threshold; and timed passes of each
+K3_WIDTHS = ((1, 20), (9, 10), (64, 10), (65, 5), (256, 5), (1024, 3))
+#: K3's gate cases (n, B, d): ragged n at the narrow, middle and wide
+#: tiles' widths, the edges of the four tiles, and every timed width at
+#: the main path's N (each tile at the shape the path runs it)
+K3_CASES = ([(n, b, d) for n in (1000, 4097) for b in (1, 7, 64, 1024)
+             for d in (3, 4)]
+            + [(4097, b, 3) for b in (16, 17, 65, 128, 129, 1000)]
+            + [(N_ITER_TRAIN, b, 3) for b, _ in K3_WIDTHS])
+
+
+def _k3_case(g, device, n, b, d):
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
+    V = torch.randn(n, b, generator=g, device=device)
+    Xk, scal = matvec.operator_arrays(X, SIGMA)
+    return Xk, scal, V
+
+
+def k3_gate(device, seed: int, cases=K3_CASES):
+    """K3 against its plain version in float64 on the same inputs at
+    `cases`, with the TF32 control that the gate must reject and the
+    3xTF32 control that it must accept; returns (worst error, worst
+    column's share of its limit)."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
 
     scale = SIGMA * SIGMA + BIAS
     g = torch.Generator(device=device).manual_seed(seed)
-
-    def case(n, b, d):
-        X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
-        V = torch.randn(n, b, generator=g, device=device)
-        Xk, scal = matvec.operator_arrays(X, SIGMA)
-        return Xk, scal, V
-
-    cases = [(n, b, d) for n in (1000, 4097) for b in (1, 7, 64, 1024)
-             for d in (3, 4)]
-    cases += [(N_ITER_TRAIN, 1, 3), (N_ITER_TRAIN, 1024, 3)]
-    worst, worst_ratio, ctl_ratio = 0.0, 0.0, float("inf")
+    worst, worst_ratio, ctl_ratio, split_ratio = 0.0, 0.0, float("inf"), 0.0
     for n, b, d in cases:
-        Xk, scal, V = case(n, b, d)
+        Xk, scal, V = _k3_case(g, device, n, b, d)
         Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
         ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), BIAS,
                                            SN2, V.double())
-        err = (Y.double() - ref).abs().max(dim=0).values
         lim = TOL_K3 * scale * V.double().abs().sum(dim=0)
-        ratio = float((err / lim).max())
-        cerr = (tf32_control(Xk, scal, V) - ref).abs().max(dim=0).values
-        cratio = float((cerr / lim).max())
-        print(f"K3 n={n} B={b} d={d}: max |kernel-plain64| "
-              f"{float(err.max()):.3e}, worst column at {ratio:.3e} of its "
-              f"limit {TOL_K3}*(s2+bias)*||V[:,b]||_1; TF32 control "
-              f"{float(cerr.max()):.3e}, worst column at {cratio:.3e}")
-        _check(bool((err <= lim).all()), f"K3 disagrees at n={n} B={b} "
-               f"d={d}")
-        _check(bool((cerr > lim).any()), f"K3 gate too loose: a TF32 "
-               f"product passes it at n={n} B={b} d={d}")
-        worst = max(worst, float(err.max()))
+
+        def share(out):
+            return (out - ref).abs().max(dim=0).values / lim
+
+        err = float((Y.double() - ref).abs().max())
+        ratio = float(share(Y.double()).max())
+        cratio = float(share(tf32_control(Xk, scal, V)).max())
+        sratio = float(share(split_tf32_control(Xk, scal, V)).max())
+        print(f"K3 n={n} B={b} d={d}: max |kernel-plain64| {err:.3e}, "
+              f"worst column at {ratio:.3e} of its limit "
+              f"{TOL_K3}*(s2+bias)*||V[:,b]||_1; TF32 control at "
+              f"{cratio:.3e}, 3xTF32 control at {sratio:.3e}")
+        _check(ratio <= 1.0, f"K3 disagrees at n={n} B={b} d={d}")
+        _check(cratio > 1.0, f"K3 gate too loose: a TF32 product passes it "
+               f"at n={n} B={b} d={d}")
+        _check(sratio <= 1.0, f"K3 gate too tight: the 3xTF32 product "
+               f"fails it at n={n} B={b} d={d}")
+        worst = max(worst, err)
         worst_ratio = max(worst_ratio, ratio)
         ctl_ratio = min(ctl_ratio, cratio)
+        split_ratio = max(split_ratio, sratio)
         del Y, ref
     print(f"K3: worst error {worst:.3e}, worst column at {worst_ratio:.3e} "
           f"of its limit; the TF32 control's worst column at no less than "
-          f"{ctl_ratio:.3e} of it")
+          f"{ctl_ratio:.3e} of it, the 3xTF32 control's at no more than "
+          f"{split_ratio:.3e}")
+    return worst, worst_ratio
 
-    report = {"max_abs_err": worst}
+
+def k3_bits(device, seed: int, n: int = 4097):
+    """Two K3 passes give equal bits on each tile (B = 9, 257, 1024), and
+    the 16-wide tile's output at B = 9 equals the middle tile's on the
+    same V zero-padded to 64 columns."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    for b in (9, 257, 1024):
+        Xk, scal, V = _k3_case(g, device, n, b, 3)
+        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+        _check(torch.equal(Y, matvec.streamed_matmat(Xk, scal, BIAS, SN2,
+                                                     V)),
+               f"K3 passes differ at n={n} B={b}")
+        if b == 9:
+            # the kernel's own output (no bias or noise: torch's column
+            # sums of (n, 9) and (n, 64) tensors need not agree in bits)
+            V64 = torch.zeros(n, 64, device=device)
+            V64[:, :b] = V
+            Y9 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V)
+            Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64)
+            _check(torch.equal(Y9, Y64[:, :b]), "K3's 16-wide tile and "
+                   "middle tile differ at B = 9")
+    print(f"K3 bits at n={n}: two passes equal at B = 9, 257 and 1024; the "
+          f"16-wide tile equals the middle tile at B = 9")
+
+
+def k3_times(device, seed: int, widths=K3_WIDTHS):
+    """CUDA event times of K3 and its plain version at N_ITER_TRAIN, d =
+    3, at `widths`, beside the bound; returns ({B: (ms, plain ms, bound
+    ms, term)}, the points, scal and the last width's V)."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    g = torch.Generator(device=device).manual_seed(seed + 2)
     bias_t, sn2_t = (torch.tensor(v, device=device) for v in (BIAS, SN2))
-    Xk, scal, _ = case(N_ITER_TRAIN, 1, 3)
     n = N_ITER_TRAIN
-    for b, iters in ((1, 20), (256, 5), (1024, 3)):
+    Xk, scal, _ = _k3_case(g, device, n, 1, 3)
+    out = {}
+    for b, iters in widths:
         V = torch.randn(n, b, generator=g, device=device)
         ms = time_ms(lambda: matvec.streamed_matmat(
             Xk, scal, bias_t, sn2_t, V), warmup=1, iters=iters)
         plain_ms = time_ms(lambda: matvec.streamed_matmat_plain(
             Xk, scal, bias_t, sn2_t, V), warmup=1, iters=min(iters, 5))
+        b_ms, b_by = bound(matmat_work(n, 3, b), **card_rates())
         pairs = n * n / (ms * 1e-3) / 1e9
         tflops = 2.0 * n * n * b / (ms * 1e-3) / 1e12
-        # bound: points, V and Y once; the distances, the s2 scale of
-        # each entry and 2 n^2 B FFMA
-        b_ms, b_by = bound(4.0 * n * (4 + 2 * b),
-                           streamed_flops(n, 3, b, scaled=True))
         print(f"K3 time N={n} B={b} d=3 f32: kernel {ms:.4f} ms "
               f"({pairs:.1f} Gpairs/s, {tflops:.2f} TFLOP/s of K.V), "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        report[b] = (ms, plain_ms, b_ms, b_by)
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (set by "
+              f"{b_by}), kernel at {b_ms / ms:.3f} of it")
+        out[b] = (ms, plain_ms, b_ms, b_by)
+    return out, Xk, scal, V
+
+
+def phase_k3(device, seed: int):
+    """K3's gate, its bits and its times at the main path's widths, the
+    SM clock under the widest, and a cuBLAS yardstick at B = 1024;
+    returns the report."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec, pairwise
+
+    worst, _ = k3_gate(device, seed)
+    k3_bits(device, seed)
+    times, Xk, scal, V = k3_times(device, seed)
+    report = {"max_abs_err": worst, **times}
     report["ms"], report["plain_ms"], report["bound_ms"], \
-        report["bound_by"] = report[1024]
+        report["bound_by"] = times[1024]
+    n = Xk.shape[0]
+    # does the card hold its clock under the widest pass? One nvidia-smi
+    # reading while four queued passes (~1 s) run
+    for _ in range(4):
+        matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    print(f"K3 at N={n} B={V.shape[1]}, read while it runs: SM clock, "
+          f"power draw {smi}")
     # a partial yardstick, not the same work: cuBLAS SGEMM on a K that
     # K1 has already built (17 GB at N = 65536), at B = 1024
     K = pairwise.expans_bias_gram(Xk[:, :3].contiguous(), SIGMA, BIAS)
@@ -440,15 +638,12 @@ def phase_k2(device, seed: int):
                 Xk, scal, bias_t, sn2_t, V), warmup=2, iters=10)
             plain_ms = time_ms(lambda: matvec.streamed_matvec_plain(
                 Xk, scal, bias_t, sn2_t, v), warmup=1, iters=3)
-            # bound: points, v and y once; the distances and the
-            # multiply-add of each entry with v (s2 once per output)
-            b_ms, b_by = bound(4.0 * n * (4 + 2),
-                               streamed_flops(n, 3, 1, scaled=False))
+            b_ms, b_by = bound(matvec_work(n, 3), **card_rates())
             print(f"K2 time N={n} d=3 f32: kernel {ms:.4f} ms "
                   f"({n * n / (ms * 1e-3) / 1e9:.1f} Gpairs/s), bound "
-                  f"{b_ms:.4f} ms ({b_by}, kernel at {b_ms / ms:.3f} of "
-                  f"it), K3 at B = 1 {k3_ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms")
+                  f"{b_ms:.4f} ms (set by {b_by}, kernel at "
+                  f"{b_ms / ms:.3f} of it), K3 at B = 1 {k3_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms")
             report[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, k3_ms=k3_ms)
         del X, Xk, v, y, y2, ref
@@ -1174,12 +1369,15 @@ def _kernel_entry(name, source, replaces, launches, report):
             "replaces": replaces, "launches": launches,
             "max_abs_err": report["max_abs_err"], "ms": report["ms"],
             "plain_ms": report["plain_ms"], "bound_ms": report["bound_ms"],
-            "bound_by": report["bound_by"], "library_ms": None}
+            "bound_by": "bytes" if report["bound_by"] == "bytes"
+            else "operations", "library_ms": None}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("k3",),
+                    help="run phases 1, 2 and 4 only, and print no result")
     args = ap.parse_args(argv)
 
     import torch
@@ -1194,6 +1392,10 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
+    if args.only == "k3":
+        phase_k3(device, args.seed)
+        print(f"K3 phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     k1 = phase_k1(device, args.seed)
     k3 = phase_k3(device, args.seed)
     k2 = phase_k2(device, args.seed)
@@ -1247,6 +1449,7 @@ def main(argv=None) -> int:
     _check(cli_k1 > 0, "iterative cli test made no K1 cross launch")
     iserver, ytrs = phase_iter_serve(device, itrain, itest, imodel, yh_it,
                                      k3[ITER_REQUEST_SIZE][0])
+    print(f"iterative serve: K3 launches {matvec.launches - cli_k3}")
     _check(pairwise.launches > cli_k1 and matvec.launches > cli_k3,
            "iterative serving launched no K1 or no K3")
     k1_launches += pairwise.launches

@@ -11,18 +11,23 @@
 // with scal = [s2] read from device memory. K is never stored: each block
 // rebuilds the tiles it needs. The caller adds bias * colsum(V) + sn2 * V.
 //
-// What bounds it on an H100 (N = 65536, d = 3):
-//  * B = 1 (the setup's alpha solve): every pass builds N^2 = 4.3e9 Gram
-//    entries. Each costs one rsqrt and one exp2 on the SFU plus ~20 FP32
-//    and shared-memory instructions (difference, exact diagonal, store,
-//    the FFMA of the narrow tile), so the pass is bound by instruction
-//    issue, not by memory: the points are 1 MB and stay in L2.
-//  * large B (the variance solves, B up to 1024): 2 N^2 B flop of FFMA
-//    (8.8e12 at B = 1024, >= 0.13 s at the 67 TFLOP/s FP32 peak). The
-//    Gram tile is rebuilt once per 128-column V tile: ~20 instructions
-//    per entry against 128 FFMA.
-//  Products stay in FP32 FFMA: TF32 would lose ~1e-3 relative and stall
-//  CG at the flagship conditioning (the TPU kernel runs at HIGHEST).
+// What bounds it on an H100 (N = 65536, d = 3). The least time of a pass
+// is the largest of four terms (chip_smoke.bound): the bytes (points, V and
+// Y once: under 1 ms at every B), the FP32 work outside the product
+// (3d + 1 operations an entry: 0.64 ms), the SFU work (an rsqrt and an ex2
+// an entry at MUFU's 16 a clock per SM: 2.05 ms at 132 SMs and 1.98 GHz; a
+// floor only while both run on MUFU, as here) and the product at float32
+// accuracy on the tensor cores (three TF32 products, 3 * 2 N^2 B
+// operations at 495 TFLOP/s: 53.3 ms at B = 1024).
+//  * B <= 64 (the setup's alpha solve at B = 1, the fit's whitened CG at
+//    B = 9, the SLQ at B = 64): the SFU term binds up to B = 40, the tensor
+//    term past it. The Gram build sets the pace (an entry issues its two
+//    SFU operations among a score of others): 9.2 ms at B = 1, 22% of
+//    the bound (H100 80GB HBM3, 700 W; chip_smoke.k3_times).
+//  * B > 64 (a request's variance solves at B = 256, the CLI's at 1024):
+//    the tensor term binds, and the kernel runs at 22% of it: each
+//    128-column pass costs ~30 ms (60.8 ms at B = 256, 242.5 at 1024),
+//    and its Gram build and V copy do not yet overlap its products.
 //
 // Design, and how it differs from the TPU kernel:
 //  * The TPU kernel keeps all points resident in VMEM and accumulates the
@@ -33,37 +38,67 @@
 //    output is summed by one thread in a fixed order, so a pass is
 //    bit-for-bit repeatable and lock-step CG iteration counts and stall
 //    cut-offs do not wander between runs.
-//  * Per column tile of BK = 32 points: (1) the block builds the BM x BK
-//    Gram tile in shared memory by direct differences (exact zeros for
-//    coincident points, no expansion, no clamp), K = s2 on the global
-//    diagonal. Every Gram entry a thread builds lies in one row, so that
-//    row's point sits in registers for the whole block; column points are
-//    float4 loads that a warp shares (L1 broadcast). (2) The BK x BB tile
-//    of V goes to shared memory, its loads issued ahead of the build so
-//    they overlap it. (3) Each thread multiplies the Gram tile into its
-//    RM x RC register tile with FFMA, reading shared memory as float4.
-//    Two barriers per tile.
-//  * Three tile shapes, chosen by B at launch:
-//      wide   (B > 64): BM x BB = 128 x 128, RM x RC = 8 x 8 per thread:
-//             4 float4 shared loads per 64 FFMA, and one Gram rebuild per
-//             128 V columns. The 8-wide fragments are two float4 groups 64
-//             apart, so a warp's loads are conflict-free. Capped at 128
-//             registers so two blocks share an SM (one block's barriers
-//             and rebuild overlap the other's FFMAs).
-//      middle (8 < B <= 64): 128 x 64, RM x RC = 8 x 4, same cap. At
-//             N = 65536, d = 3 and B = 9..64 a pass takes 30.0-31.9 ms
-//             here against 41.9-43.1 ms on the wide tile, whose masked
-//             columns cost as much as live ones (H100 80GB HBM3, 700 W).
-//      narrow (B <= 8): 128 x 8, RM x RC = 1 x 4. At B = 1 the wide tile
-//             would spend 128 FFMA per Gram entry on masked columns; here
-//             it is 8, and the pass stays bound by the build.
+//  * Per column tile of training points the block stages the V tile and
+//    builds the Gram tile in shared memory by direct differences (exact
+//    zeros for coincident points, no expansion, no clamp), K = s2 on the
+//    global diagonal, then multiplies the two into its register
+//    accumulators. Every Gram entry a thread builds lies in one row, so
+//    that row's point sits in registers for the whole block; column points
+//    are float4 loads that a warp shares (L1 broadcast). The build is
+//    branch-free (gram_entry), so a thread's entries overlap their load
+//    and SFU latencies.
+//  * Four tiles, chosen by B at launch; the first three multiply in FP32
+//    FFMA (32-point tiles, V loaded ahead of the build, two barriers a
+//    tile), the fourth on the tensor cores:
+//      narrow (B <= 8): 128 x 8, RM x RC = 1 x 4 per thread. At B = 1 a
+//             wider tile would spend its FFMAs on masked columns.
+//      16     (8 < B <= 16, the fit's B = 9): 128 x 16, RM x RC = 2 x 4,
+//             four blocks an SM so that N = 65536's 512 row tiles run in
+//             one wave: 10.6 ms at B = 9, where the middle tile took 30.0
+//             and paid for 55 masked columns.
+//      middle (16 < B <= 64): 128 x 64, RM x RC = 8 x 4: 19.5 ms at
+//             B = 64, against 34.4 ms for the wide tile at B = 65, so
+//             the wide tile starts past 64.
+//      wide   (B > 64): 128 x 128, 3xTF32 on the tensor cores, below.
+//    Every FFMA tile sums each output over k in the same order from the
+//    same Gram values, so the 16-wide and middle tiles give equal bits.
+//  * The wide tile's product, 3xTF32 (CUTLASS's "fast FP32"): a float32
+//    x splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is
+//    exact), and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, three m16n8k8
+//    TF32 mma.sync; the dropped a_lo b_lo and lo's rounding leave ~2^-21
+//    of each product, unbiased. The Gram entries are split once, by the
+//    thread that builds them, and stored as (hi, lo) pairs; V is copied
+//    raw (cp.async, 16 bytes at a time where b % 4 == 0) and split as its
+//    fragments are loaded. 8 warps tile the 128 x 128 output as 2 x 4
+//    warps of 64 x 32 (4 x 4 m16n8 tiles a warp). Rows of ks are padded
+//    by 4 pairs and rows of vs by 8 floats: a fragment's loads, at
+//    (k = t or t + 4, row or column g or g + 8) with g = lane / 4 and
+//    t = lane % 4, then hit distinct banks. 64-point tiles in two stages
+//    (200 KB of dynamic shared memory, one block an SM): while a tile is
+//    multiplied, the next tile's V copy is in flight and its Gram tile is
+//    built after the products; one barrier a tile.
+//  * The tensor cores' accumulator truncates: an mma adds its products
+//    into its accumulator with round-toward-zero (Fasi, Higham, Mikaitis,
+//    Pranesh 2021, "Numerical behavior of NVIDIA tensor cores"). Chained
+//    over N = 65536 (24576 mma into one accumulator) the error drifts with
+//    the sign of the running sum. So each k-step's three mma start from
+//    zero and their sum is added into float32 accumulators with an
+//    ordinary FADD (round to nearest): 4 FADD per m16n8 tile per 8 k.
+//    Worst column against the gate 1.5e-7 (s2 + bias) ||V[:, b]||_1 at
+//    B = 1024, d = 3, seed 0 (chip_smoke.k3_gate's inputs, H100 80GB
+//    HBM3, 700 W):
+//      accumulating inside the mma chain (the three mma_tf32 calls below
+//      taking acc[i][j] itself; that variant is not kept):
+//        1.70 of the gate at n = 4097, 7.00 at n = 65536 (fails);
+//      flushed every k-step (this kernel):
+//        0.094 at n = 4097, 0.093 at n = 65536.
 //  * Ragged n and B are masked in the kernel: no padded copies of V, no
 //    slice of the output afterwards. The points are padded once, at
 //    operator setup, to dp = 4 * ceil(d / 4) <= 16 (float4 loads).
-//  * float32 only, the TPU kernel's type. A simple first version: no
-//    wgmma, TMA, cp.async pipelining or 3xTF32 yet.
+//  * float32 in and out, the TPU kernel's type. No wgmma or TMA yet.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -86,6 +121,57 @@ __device__ __forceinline__ float rsqrt_approx(float x)
     asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
     return y;
 }
+
+__device__ __forceinline__ float sq4(float4 a, float4 b, float acc)
+{
+    float t = a.x - b.x;
+    acc = fmaf(t, t, acc);
+    t = a.y - b.y;
+    acc = fmaf(t, t, acc);
+    t = a.z - b.z;
+    acc = fmaf(t, t, acc);
+    t = a.w - b.w;
+    return fmaf(t, t, acc);
+}
+
+// Point gi into registers (zeros past n or past d4 float4s)
+template <int D4>
+__device__ __forceinline__ void load_point(float4 (&xr)[D4],
+                                           const float4* __restrict__ x,
+                                           int gi, int n, int d4)
+{
+#pragma unroll
+    for (int j = 0; j < D4; ++j)
+        xr[j] = (gi < n && j < d4) ? x[(size_t)gi * d4 + j]
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// K(gi, gj) by direct differences, s2 exactly at gi == gj, 0 past n.
+// Branch-free (loads clamped into range, results selected), so that the
+// entries a thread builds for one tile overlap their load and SFU
+// latencies instead of running one after another
+template <int D4>
+__device__ __forceinline__ float gram_entry(const float4 (&xr)[D4],
+                                            const float4* __restrict__ x,
+                                            int gi, int gj, int n, int d4,
+                                            float s2)
+{
+    const int jc = min(gj, n - 1);
+    float d2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < D4; ++j) {
+        const float e = sq4(xr[j], __ldg(&x[(size_t)jc * d4 + min(j, d4 - 1)]),
+                            d2);
+        d2 = j < d4 ? e : d2;
+    }
+    // below 1e-30, sqrt(d2) < 1e-15 rounds exp(-.) to 1 anyway
+    const float dist = d2 > 1e-30f ? d2 * rsqrt_approx(d2) : 0.0f;
+    const float kv = gi == gj ? s2 : s2 * ex2_approx(-dist * LOG2E);
+    return gj < n ? kv : 0.0f;
+}
+
+// ---------------------------------------------------------------------
+// The FFMA tiles (B <= 64)
 
 // Index of a thread's q-th of R register-tile rows (or columns) in a tile
 // of extent T, t the thread's index along it. R <= 4: R adjacent entries.
@@ -114,18 +200,6 @@ __device__ __forceinline__ void load_frag(float (&dst)[R], const float* row,
 #pragma unroll
         for (int q = 0; q < R; ++q) dst[q] = row[tile_idx<R, T>(t, q)];
     }
-}
-
-__device__ __forceinline__ float sq4(float4 a, float4 b, float acc)
-{
-    float t = a.x - b.x;
-    acc = fmaf(t, t, acc);
-    t = a.y - b.y;
-    acc = fmaf(t, t, acc);
-    t = a.z - b.z;
-    acc = fmaf(t, t, acc);
-    t = a.w - b.w;
-    return fmaf(t, t, acc);
 }
 
 // BM rows x BB V-columns per block; each thread owns RM rows x RC columns
@@ -162,10 +236,7 @@ matmat_kernel(const float4* __restrict__ x, const float* __restrict__ v,
     const int r = tid % BM;
     const int gi = row0 + r;
     float4 xr[D4];
-#pragma unroll
-    for (int j = 0; j < D4; ++j)
-        xr[j] = (gi < n && j < d4) ? x[(size_t)gi * d4 + j]
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    load_point(xr, x, gi, n, d4);
 
     float acc[RM][RC];
 #pragma unroll
@@ -174,8 +245,7 @@ matmat_kernel(const float4* __restrict__ x, const float* __restrict__ v,
         for (int c = 0; c < RC; ++c) acc[i][c] = 0.0f;
 
     for (int col0 = 0; col0 < n; col0 += BK) {
-        // (1) V tile: value e = tid + q * NT is (row e / BB, column e % BB);
-        // issued first, so the loads overlap the Gram build
+        // (1) V tile: value e = tid + q * NT is (row e / BB, column e % BB)
 #pragma unroll
         for (int q = 0; q < VE; ++q) {
             const int e = tid + q * NT;
@@ -187,19 +257,7 @@ matmat_kernel(const float4* __restrict__ x, const float* __restrict__ v,
 #pragma unroll
         for (int q = 0; q < E; ++q) {
             const int c = tid / BM + q * CS;
-            const int gj = col0 + c;
-            float kv = 0.0f;
-            if (gj < n) {
-                float d2 = 0.0f;
-#pragma unroll
-                for (int j = 0; j < D4; ++j)
-                    if (j < d4) d2 = sq4(xr[j], __ldg(&x[(size_t)gj * d4 + j]),
-                                         d2);
-                // below 1e-30, sqrt(d2) < 1e-15 rounds exp(-.) to 1 anyway
-                const float dist = d2 > 1e-30f ? d2 * rsqrt_approx(d2) : 0.0f;
-                kv = gi == gj ? s2 : s2 * ex2_approx(-dist * LOG2E);
-            }
-            ks[c][r] = kv;
+            ks[c][r] = gram_entry(xr, x, gi, col0 + c, n, d4, s2);
         }
         __syncthreads();
         // (3) acc += Gram tile x V tile, in FP32 FFMA
@@ -246,6 +304,228 @@ cudaError_t launch(const float4* x, const float* v, const float* scal,
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The wide tile (B > 64): 3xTF32 on the tensor cores
+
+constexpr int TBM = 128, TBB = 128;        // block tile: rows x V columns
+constexpr int TBK = 64;                    // training points per tile
+constexpr int WM = 64, WN = 32;            // warp tile
+constexpr int MI = WM / 16, NI = WN / 8;   // m16n8 tiles per warp
+constexpr int KSTRIDE = TBM + 4;           // float2 pairs per ks row
+constexpr int VSTRIDE = TBB + 8;           // floats per vs row
+constexpr int KS_BYTES = TBK * KSTRIDE * (int)sizeof(float2);
+constexpr int VS_BYTES = TBK * VSTRIDE * (int)sizeof(float);
+constexpr int TC_SMEM = 2 * (KS_BYTES + VS_BYTES);     // two stages
+static_assert((TBM / WM) * (TBB / WN) * 32 == NT, "warps tile the block");
+
+// (hi, lo): x = hi + lo + O(2^-22 |x|), both TF32 values (low 13 bits 0)
+__device__ __forceinline__ float2 split_tf32(float x)
+{
+    uint32_t hi, lo;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+    return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+// d = a b + c on one m16n8k8 tile. Fragments (g = lane / 4, t = lane % 4):
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k = t, col g), b1 (k = t + 4, col g);
+// c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 * W bytes (W = 1 or 4 floats) from global memory to shared memory,
+// asynchronously: the first `valid` floats of src, zeros after them
+template <int W>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int valid)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (W == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                     :: "r"(d), "l"(src), "r"(4 * valid));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                     :: "r"(d), "l"(src), "r"(4 * valid));
+}
+
+// One block an SM with two stages of (ks, vs): while the tensor cores
+// multiply one column tile, the same warps build the next (FP32 and SFU
+// pipes) and its V tile is in flight (cp.async, no registers held); one
+// barrier per tile. VW: floats per V copy, 4 (16 bytes) where every row
+// of V starts 16-byte aligned (b % 4 == 0), else 1
+template <int D4, int VW>
+__global__ void __launch_bounds__(NT, 1)
+matmat_tc_kernel(const float4* __restrict__ x, const float* __restrict__ v,
+                 const float* __restrict__ scal, float* __restrict__ y,
+                 int n, int b, int d4)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    // stage s: ks[k][row] = (hi, lo) of the Gram tile, vs[k][col] = V tile
+    auto ks_at = [&](int s) {
+        return reinterpret_cast<float2 (*)[KSTRIDE]>(smem + s * KS_BYTES);
+    };
+    auto vs_at = [&](int s) {
+        return reinterpret_cast<float (*)[VSTRIDE]>(smem + 2 * KS_BYTES +
+                                                    s * VS_BYTES);
+    };
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wr = (warp / (TBB / WN)) * WM;   // the warp's rows in the tile
+    const int wc = (warp % (TBB / WN)) * WN;   // and its V columns
+    const int row0 = blockIdx.x * TBM;
+    const int b0 = blockIdx.y * TBB;
+    const float s2 = scal[0];
+
+    // the row of this thread's Gram entries, and its point
+    constexpr int CS = NT / TBM;
+    const int r = tid % TBM;
+    const int gi = row0 + r;
+    float4 xr[D4];
+    load_point(xr, x, gi, n, d4);
+
+    // V tile at col0 into stage s: value e = tid + q * NT is
+    // (row e / TBB, column e % TBB), zeros past n and past b
+    auto load_v = [&](int s, int col0) {
+        float (*vs)[VSTRIDE] = vs_at(s);
+        // 4-byte copies: 8 at a time, or their addresses spill
+#pragma unroll (VW == 1 ? 8 : TBK * TBB / (NT * VW))
+        for (int q = 0; q < TBK * TBB / (NT * VW); ++q) {
+            const int e = (tid + q * NT) * VW;
+            const int gj = col0 + e / TBB, gb = b0 + e % TBB;
+            const int ok = gj < n ? max(0, min(VW, b - gb)) : 0;
+            cp_async<VW>(&vs[e / TBB][e % TBB],
+                         ok ? v + (size_t)gj * b + gb : v, ok);
+        }
+        asm volatile("cp.async.commit_group;");
+    };
+    // Gram tile at col0 into stage s: entries (r, tid / TBM + q * CS),
+    // all of a thread's in flight at once where the point is one float4,
+    // four at a time past that (more would spill)
+    constexpr int BUILD_ILP = D4 == 1 ? TBK / CS : 4;
+    auto build = [&](int s, int col0) {
+        float2 (*ks)[KSTRIDE] = ks_at(s);
+#pragma unroll BUILD_ILP
+        for (int q = 0; q < TBK / CS; ++q) {
+            const int c = tid / TBM + q * CS;
+            ks[c][r] = split_tf32(gram_entry(xr, x, gi, col0 + c, n, d4, s2));
+        }
+    };
+
+    float acc[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+    load_v(0, 0);
+    build(0, 0);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    for (int col0 = 0, s = 0; col0 < n; col0 += TBK, s ^= 1) {
+        // the next tile: its V copy goes out first, its Gram tile is
+        // built after this tile's products (past n both are zeros, so
+        // the last tile needs no branch)
+        load_v(s ^ 1, col0 + TBK);
+        const float2 (*ks)[KSTRIDE] = ks_at(s);
+        const float (*vs)[VSTRIDE] = vs_at(s);
+        // acc += Gram tile x V tile, 3xTF32, flushed every k-step (not
+        // unrolled: the build below keeps its registers)
+#pragma unroll 1
+        for (int k0 = 0; k0 < TBK; k0 += 8) {
+            uint32_t bh[NI][2], bl[NI][2];
+#pragma unroll
+            for (int j = 0; j < NI; ++j) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float2 p =
+                        split_tf32(vs[k0 + t + 4 * h][wc + j * 8 + g]);
+                    bh[j][h] = __float_as_uint(p.x);
+                    bl[j][h] = __float_as_uint(p.y);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+                const int rr = wr + i * 16 + g;
+                const float2 q0 = ks[k0 + t][rr], q1 = ks[k0 + t][rr + 8];
+                const float2 q2 = ks[k0 + t + 4][rr];
+                const float2 q3 = ks[k0 + t + 4][rr + 8];
+                const uint32_t ah[4] = {
+                    __float_as_uint(q0.x), __float_as_uint(q1.x),
+                    __float_as_uint(q2.x), __float_as_uint(q3.x)};
+                const uint32_t al[4] = {
+                    __float_as_uint(q0.y), __float_as_uint(q1.y),
+                    __float_as_uint(q2.y), __float_as_uint(q3.y)};
+#pragma unroll
+                for (int j = 0; j < NI; ++j) {
+                    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                    mma_tf32(p, al, bh[j][0], bh[j][1]);
+                    mma_tf32(p, ah, bl[j][0], bl[j][1]);
+                    mma_tf32(p, ah, bh[j][0], bh[j][1]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += p[e];
+                }
+            }
+        }
+        // the other stage was last read before the previous barrier
+        build(s ^ 1, col0 + TBK);
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = row0 + wr + i * 16 + g + h * 8;
+            if (row >= n) continue;
+            float* yrow = y + (size_t)row * b;
+#pragma unroll
+            for (int j = 0; j < NI; ++j) {
+                const int gb = b0 + wc + j * 8 + 2 * t;
+                if (gb < b) yrow[gb] = acc[i][j][2 * h];
+                if (gb + 1 < b) yrow[gb + 1] = acc[i][j][2 * h + 1];
+            }
+        }
+    }
+}
+
+template <int D4, int VW>
+cudaError_t launch_tc(const float4* x, const float* v, const float* scal,
+                      float* y, int n, int b, int d4, cudaStream_t stream)
+{
+    const dim3 grid((n + TBM - 1) / TBM, (b + TBB - 1) / TBB);
+    if (grid.y > 65535u) return cudaErrorInvalidValue;
+    // 200 KB of dynamic shared memory: above the 48 KB default
+    cudaError_t err = cudaFuncSetAttribute(
+        matmat_tc_kernel<D4, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TC_SMEM);
+    if (err != cudaSuccess) return err;
+    matmat_tc_kernel<D4, VW><<<grid, NT, TC_SMEM, stream>>>(x, v, scal, y, n,
+                                                            b, d4);
+    return cudaGetLastError();
+}
+
+template <int D4>
+cudaError_t launch_tc(const float4* x, const float* v, const float* scal,
+                      float* y, int n, int b, int d4, cudaStream_t stream)
+{
+    return b % 4 == 0 && (size_t)v % 16 == 0
+               ? launch_tc<D4, 4>(x, v, scal, y, n, b, d4, stream)
+               : launch_tc<D4, 1>(x, v, scal, y, n, b, d4, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -267,12 +547,17 @@ int gp_matmat_f32(const void* x, const void* v, const void* scal, void* y,
     const float* sf = (const float*)scal;
     float* yf = (float*)y;
     cudaStream_t s = (cudaStream_t)stream;
+    const int d4 = dp / 4;
     if (b <= 8)
-        err = launch<128, 8, 1, 4, 3>(xf, vf, sf, yf, n, b, dp / 4, s);
+        err = launch<128, 8, 1, 4, 3>(xf, vf, sf, yf, n, b, d4, s);
+    else if (b <= 16)
+        err = launch<128, 16, 2, 4, 4>(xf, vf, sf, yf, n, b, d4, s);
     else if (b <= 64)
-        err = launch<128, 64, 8, 4, 2>(xf, vf, sf, yf, n, b, dp / 4, s);
+        err = launch<128, 64, 8, 4, 2>(xf, vf, sf, yf, n, b, d4, s);
+    else if (d4 == 1)
+        err = launch_tc<1>(xf, vf, sf, yf, n, b, d4, s);
     else
-        err = launch<128, 128, 8, 8, 2>(xf, vf, sf, yf, n, b, dp / 4, s);
+        err = launch_tc<4>(xf, vf, sf, yf, n, b, d4, s);
     return (int)err;
 }
 

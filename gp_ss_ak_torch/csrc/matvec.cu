@@ -12,16 +12,17 @@
 // adds bias * sum(v) + sn2 * v (matvec.py:257).
 //
 // What bounds it on an H100 (N = 65536, d = 3): N^2 = 4.3e9 Gram entries
-// per pass. The roofline bound is the FP32 work, 11 flop an entry with a
-// multiply-add counted as two (three differences, three multiply-adds for
-// d2, the multiply-add with v; s2 scales each output once, and the bias is
-// the caller's): 4.7e10 flop, 0.71 ms at 67 TFLOP/s; the bytes (the points
-// and v, 1.3 MB) are nothing.
-// Each entry also needs two SFU operations (rsqrt, then ex2): at 16 a
-// clock per SM that is ~2.3 ms, and with the ~12 other issued instructions
-// an entry the pass is bound by issue, not by memory. K3 at B = 1 spends
-// 11 ms on the same pass: it stages every Gram entry in shared memory and
-// runs a mostly masked FFMA tile.
+// per pass, each with two SFU operations (rsqrt, then ex2). At 16 a clock
+// per SM, 132 SMs and 1.98 GHz those take 2.05 ms, the largest term of
+// chip_smoke.bound: above the FP32 work (11 flop an entry with a
+// multiply-add counted as two: three differences, three multiply-adds for
+// d2, the multiply-add with v; 0.71 ms at 67 TFLOP/s) and the bytes (the
+// points and v, 1.3 MB). That SFU term holds only while both run on MUFU,
+// as here: moving part of the ex2 onto the FP32 pipes as a polynomial
+// would lower the floor. With the ~12 other issued instructions an entry
+// the pass is bound by issue, not by memory. K3 at B = 1 spends 9.2 ms
+// on the same pass: it stages every Gram entry in shared memory and runs
+// a mostly masked FFMA tile.
 //
 // Design:
 //  * Each thread owns RPT rows and keeps their points in registers. The

@@ -30,8 +30,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-#: what the last build printed (nvcc's -Xptxas -v register/spill report)
-#: and how long it took; empty until `load()` has built
+#: what the build of the loaded library printed (nvcc's -Xptxas -v
+#: register/spill report, kept beside the library) and, if `load()` built
+#: it, how long that took; empty until `load()` has run
 build_info = {}
 _lib = None
 
@@ -92,9 +93,10 @@ def _compile_and_link(srcs, out: Path) -> None:
         if all(rc == 0 for rc, _ in results):
             results += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
                                   *map(str, objs)]])
-        build_info["log"] = "".join(text for _, text in results)
+        log = "".join(text for _, text in results)
         if any(rc != 0 for rc, _ in results):
-            raise RuntimeError("nvcc failed:\n" + build_info["log"])
+            raise RuntimeError("nvcc failed:\n" + log)
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     finally:
         for o in objs:
@@ -117,6 +119,9 @@ def load():
         t0 = time.perf_counter()
         _compile_and_link(srcs, out)
         build_info["seconds"] = time.perf_counter() - t0
+    log = out.with_suffix(".log")
+    if log.exists():            # a diagnostic: loading never needs it
+        build_info["log"] = log.read_text()
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     _lib = lib

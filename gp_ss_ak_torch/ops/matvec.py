@@ -12,7 +12,15 @@ tensors:
 
   streamed_matmat  K3, csrc/matmat.cu (replaces the Pallas
                    gp_ss_ak_tpu/ops/matvec.py::_matmat_kernel): B columns
-                   per pass; count `launches`.
+                   per pass; count `launches`. The kernel picks its tile
+                   by B: FP32 FFMA tiles 8, 16 and 64 columns wide for
+                   B <= 64, where the Gram build sets the pace, and past
+                   that a 128-column tile whose product runs on the
+                   tensor cores in 3xTF32 (each operand split into two
+                   TF32 parts, each k-step's partial sums added into
+                   float32 accumulators, since the tensor cores'
+                   accumulator truncates). Every tile sums in a fixed
+                   order: two passes give equal bits.
   streamed_matvec  K2, csrc/matvec.cu (replaces
                    gp_ss_ak_tpu/ops/matvec.py::_matvec_kernel): one
                    vector per pass; count `matvec_launches`.

@@ -1,0 +1,81 @@
+"""The kernel bounds and the K3 gate's two controls of chip_smoke.py, on
+the CPU.
+
+`chip_smoke.bound` prices a kernel's work as the largest of four terms:
+bytes over 3.35 TB/s, FP32 operations outside any product over 67
+TFLOP/s, SFU operations (an rsqrt and an ex2 per Gram entry) over
+SMs x 16 x the SM clock, and a product over the 495 TFLOP/s of TF32 at
+three TF32 products each (float32 accuracy on the tensor cores). At an
+H100 SXM's 132 SMs and 1.98 GHz the numbers below are the ones PERF.md
+states, to 1e-3 relative.
+
+The K3 gate (max |Y - plain64| per column within 1.5e-7 (s2 + bias)
+||V[:, b]||_1) must reject a TF32 product and accept a 3xTF32 one, whose
+split leaves ~2^-21 of each product; at n = 4097, B = 64 they sit at
+~17x and ~0.005 of it.
+"""
+
+import importlib.util
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+SMS, CLOCK_HZ = 132, 1.98e9             # H100 SXM: SMs, max SM clock
+N = 65536                               # the matrix-free path's N
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    # six pytest workers at a thread per core oversubscribe the CPU
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("work,ms,term", [
+    (cs.gram_work(16384, 16384, 3), 0.3206, "bytes"),        # K1
+    (cs.matvec_work(N, 3), 2.054, "SFU"),                    # K2
+    (cs.matmat_work(N, 3, 1), 2.054, "SFU"),                 # K3 setup
+    (cs.matmat_work(N, 3, 9), 2.054, "SFU"),                 # fit's CG
+    (cs.matmat_work(N, 3, 64), 3.332, "tensor"),             # SLQ
+    (cs.matmat_work(N, 3, 256), 13.33, "tensor"),            # a request
+    (cs.matmat_work(N, 3, 1024), 53.31, "tensor"),           # CLI's solves
+], ids=["K1-16384", "K2", "K3-B1", "K3-B9", "K3-B64", "K3-B256",
+        "K3-B1024"])
+def test_bound_matches_perf_md(work, ms, term):
+    b_ms, b_term = cs.bound(work, sms=SMS, clock_hz=CLOCK_HZ)
+    assert b_term == term
+    assert b_ms == pytest.approx(ms, rel=1e-3)
+
+
+def test_sfu_term_follows_the_card():
+    # half the SMs at the same clock: twice the SFU time
+    full, _ = cs.bound(cs.matvec_work(N, 3), sms=SMS, clock_hz=CLOCK_HZ)
+    half, term = cs.bound(cs.matvec_work(N, 3), sms=SMS // 2,
+                          clock_hz=CLOCK_HZ)
+    assert term == "SFU" and half == pytest.approx(2 * full, rel=1e-12)
+
+
+@pytest.mark.parametrize("d", [3, 4])
+def test_k3_gate_rejects_tf32_and_accepts_3xtf32(d):
+    from gp_ss_ak_torch.ops import matvec
+
+    g = torch.Generator().manual_seed(d)
+    Xk, scal, V = cs._k3_case(g, torch.device("cpu"), 4097, 64, d)
+    ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), cs.BIAS,
+                                       cs.SN2, V.double())
+    lim = cs.TOL_K3 * (cs.SIGMA ** 2 + cs.BIAS) * V.double().abs().sum(0)
+
+    def worst_share(out):
+        return float(((out - ref).abs().max(dim=0).values / lim).max())
+
+    assert worst_share(cs.tf32_control(Xk, scal, V)) > 1.0
+    assert worst_share(cs.split_tf32_control(Xk, scal, V)) <= 1.0

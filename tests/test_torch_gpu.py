@@ -11,7 +11,8 @@ Tolerances, relative to the Gram's scale s2 + bias: the kernel computes
 d2 by direct differences, its plain version by the expansion, so in
 float64 they agree to 1e-10; in float32 the kernel is held to 1e-5
 against the plain version evaluated in float64 on the same inputs.
-K3 (float32 only) is held per column to
+K3 (float32 only; 3xTF32 on the tensor cores past B = 64) is held per
+column to
 TOL_K3 * (s2 + bias) * ||V[:, b]||_1 against its plain version in
 float64: each output sums n products in float32, whose error grows like
 n, as ||V||_1 does. TOL_K3 is chip_smoke.py's, set from readings on the
@@ -145,7 +146,14 @@ def _matmat_case(n, b, d, cuda, seed):
 
 @pytest.mark.parametrize("n,b,d", [(1, 1, 3), (37, 1, 3), (130, 7, 4),
                                    (1000, 8, 3), (1000, 9, 3), (257, 64, 5),
-                                   (4097, 65, 2), (300, 130, 3)])
+                                   (4097, 65, 2), (300, 130, 3),
+                                   # the edges of the 16-wide, middle and
+                                   # tensor-core tiles, at ragged n
+                                   (130, 16, 3), (4097, 16, 3), (130, 17, 4),
+                                   (4097, 17, 3), (130, 64, 3), (4097, 64, 3),
+                                   (130, 65, 3), (130, 128, 4), (4097, 128, 3),
+                                   (130, 129, 3), (4097, 129, 5),
+                                   (130, 1024, 3), (4097, 1024, 3)])
 def test_matmat_kernel_matches_plain(cuda, n, b, d):
     Xk, scal, V = _matmat_case(n, b, d, cuda, seed=n + b)
     before = matvec.launches
@@ -167,6 +175,27 @@ def test_matmat_kernel_is_repeatable(cuda):
                        matvec.streamed_matmat(Xk, scal, BIAS, SN2, V))
 
 
+@pytest.mark.parametrize("b", [9, 257, 1024])
+def test_matmat_tiles_are_repeatable(cuda, b):
+    # the 16-wide FFMA tile (B = 9) and the tensor-core tile: equal bits
+    Xk, scal, V = _matmat_case(2049, b, 3, cuda, seed=b)
+    assert torch.equal(matvec.streamed_matmat(Xk, scal, BIAS, SN2, V),
+                       matvec.streamed_matmat(Xk, scal, BIAS, SN2, V))
+
+
+def test_matmat_16_wide_tile_equals_the_middle_tile(cuda):
+    # both FFMA tiles sum each output over k in one order from the same
+    # Gram values: B = 9 equals the same V zero-padded to 64 columns. No
+    # bias or noise: torch's column sums of (n, 9) and (n, 64) tensors
+    # need not agree in bits
+    Xk, scal, V = _matmat_case(3001, 9, 3, cuda, seed=10)
+    V64 = torch.zeros(3001, 64, device=cuda)
+    V64[:, :9] = V
+    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V)
+    Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64)
+    assert torch.equal(Y, Y64[:, :9])
+
+
 def test_matmat_diagonal_is_exactly_s2(cuda):
     # unit columns pick out Gram columns; at i == j the kernel writes s2
     # itself, not s2 * exp(-sqrt(0 + round-off))
@@ -178,6 +207,20 @@ def test_matmat_diagonal_is_exactly_s2(cuda):
     Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, E)
     assert torch.equal(Y[cols, torch.arange(cols.numel(), device=cuda)],
                        scal.expand(cols.numel()))
+
+
+def test_matmat_diagonal_on_the_tensor_cores(cuda):
+    # the wide tile holds s2 exactly but multiplies its 3xTF32 split,
+    # whose hi + lo keeps 11 of the 13 bits below hi: within 2^-20 s2
+    n = 300
+    Xk, scal, _ = _matmat_case(n, 1, 3, cuda, seed=4)
+    cols = torch.arange(0, n, 3, device=cuda)          # 100 unit columns
+    E = torch.zeros(n, cols.numel(), device=cuda)
+    E[cols, torch.arange(cols.numel(), device=cuda)] = 1.0
+    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, E)
+    diag = Y[cols, torch.arange(cols.numel(), device=cuda)].double()
+    s2 = scal.double()
+    assert ((diag - s2).abs() <= 2.0 ** -20 * s2).all()
 
 
 def test_matmat_wrapper_rejects_what_the_kernel_does_not_take(cuda):
