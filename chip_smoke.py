@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
+    python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -32,20 +33,30 @@ Phases, each of which raises on failure (nothing is caught):
   9. the dense training path: `cli.main([... "train" -# 5 ...])` at
      N = 16384 (DENSE_MAX_N), then `test` on the trained model (the
      round trip), and one real evaluation under torch.profiler;
+ 9b. the warped round trip: `train -# 5 -lf WarpGauss:tanh1:1` and
+     `test` at N = 16384 on a skewed grade, exp(0.8 y) of the same ore
+     body; the time of one warped evaluation and of the warp mix;
  10. the matrix-free `serve.IterativePredictor` (float32) against the
      dense Predictor in float64 on the same N = 16384 case, and
      `nlml_and_grad_iterative` there in chol, gemm and stream mode with
      the same probes;
+ 10b. the same comparison for the warped model of 9b;
  11. the matrix-free path: the same CLI call with the default
      `--engine auto` at N_train = 65536, N_test = 1024, which must pick
      the iterative server; then one IterativePredictor serving 4
      requests of 256 queries, and its setup split;
+ 11b. the warped matrix-free path at N = 65536: one warped
+     IterativePredictor serving 2 requests of 256 queries; one warped
+     stream-mode `make_iterative_value_and_grad` evaluation with an
+     identity-like warp against the plain Gaussian's with the same
+     probes;
  12. matrix-free training: `optim.fit(engine="iterative", stream mode,
      iters=2)` at N = 65536, and one real evaluation under
      torch.profiler;
  13. the default train route at N = 65536: `cli.main([... "train" -# 1
      ...])` with `--engine auto` (chol mode on an 80 GB card) and its
-     dense training-set predict, profiled, with its peak memory;
+     dense training-set predict (the mean alone, in 4096-query chunks),
+     profiled, with its peak memory held to 8 N^2 bytes + 3 GiB;
  14. the K2 path: `nlml_iterative(precond_rank=0, mode="stream")` at
      N = 32768, its residual through K3 and chol mode's exact value.
 Every bound is the largest of four terms (`bound`): bytes, FP32 work
@@ -81,6 +92,11 @@ SIGMA, BIAS = 0.32626754572075006, 0.16293397312977825   # golden model
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 N_TRAIN, N_TEST = 16384, 4096   # N_TRAIN = the dense engine's DENSE_MAX_N
+# the warped phases: the CLI's likelihood flag, the requests of the warped
+# matrix-free server, and the identity-like warp (a = exp(-12), sn2 = SN2;
+# tests/test_inference.py:138-147)
+WARP_LF = "WarpGauss:tanh1:1"
+WARP_ITER_REQUESTS = 2
 REQUESTS, REQUEST_SIZE = 8, 512
 # the matrix-free path: past the CLI's ITERATIVE_MIN_N = 32768
 N_ITER_TRAIN, N_ITER_TEST = 65536, 1024
@@ -119,6 +135,11 @@ SFU_PER_SM_CLOCK = 16
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
+WARP_MSE_MAX = 1.0              # a warped model's: below var(y), as
+#                                 tests/test_cli.py:199-203 holds JAX
+# the default train route's peak device memory: A and L during potrf
+# (8 N^2 bytes in float32) and this much more
+DEFAULT_ROUTE_SLACK_GIB = 3.0
 MEAN_TOL = 1e-3                 # Predictor vs CLI means, times std(y)
 
 
@@ -708,9 +729,12 @@ def ore_body(seed: int, n: int):
     return X, y
 
 
-def write_case(workdir: str, seed: int, n_train: int, n_test: int):
-    """Train/test files, statistics and a model file with the golden
-    ExpAns+Bias hyperparameters and the default noise sn2 = 0.016."""
+def write_case(workdir: str, seed: int, n_train: int, n_test: int,
+               skew: bool = False, model=None):
+    """Train/test files, statistics and a model file: `model` (a CPU
+    GPModel), by default the golden ExpAns+Bias hyperparameters with the
+    default noise sn2 = 0.016. `skew` replaces the grade y by exp(0.8 y),
+    the skewed regime the warped likelihood exists for."""
     import torch
 
     from gp_ss_ak_torch.data import MODE_SYMMETRIC, prepare, write_data
@@ -718,6 +742,8 @@ def write_case(workdir: str, seed: int, n_train: int, n_test: int):
 
     os.makedirs(workdir, exist_ok=True)
     X, y = ore_body(seed, n_train + n_test)
+    if skew:
+        y = np.exp(0.8 * y)
     train = os.path.join(workdir, "train.txt")
     test = os.path.join(workdir, "test.txt")
     model_path = os.path.join(workdir, "model")
@@ -725,15 +751,16 @@ def write_case(workdir: str, seed: int, n_train: int, n_test: int):
     write_data(test, X[n_train:], y[n_train:])
     _, _, stats = prepare(X[:n_train], y[:n_train], MODE_SYMMETRIC)
     stats.save(model_path + "_Statistics.txt")
-    golden = load_model(os.path.join(GOLDEN, "model"), device="cpu")
-    model = dataclasses.replace(
-        golden, num_data=n_train,
-        lik_hypers=torch.tensor([SN2], dtype=torch.float64))
-    save_model(model, model_path)
+    if model is None:
+        model = dataclasses.replace(
+            load_model(os.path.join(GOLDEN, "model"), device="cpu"),
+            lik_hypers=torch.tensor([SN2], dtype=torch.float64))
+    save_model(dataclasses.replace(model, num_data=n_train), model_path)
     return train, test, model_path
 
 
-def phase_main(train: str, test: str, model_path: str):
+def phase_main(train: str, test: str, model_path: str,
+               mse_max: float = MSE_MAX):
     """`test` through the CLI entry point, in float32; returns the
     predicted means in test-file order."""
     from gp_ss_ak_torch import cli
@@ -752,9 +779,9 @@ def phase_main(train: str, test: str, model_path: str):
     mse = float(re.search(r"Mean Square Error of testing: (\S+)",
                           text).group(1))
     var_y = float(re.search(r"Var MSE Test: (\S+)", text).group(1))
-    _check(np.isfinite(mse) and mse < MSE_MAX * var_y,
-           f"test MSE {mse} not below {MSE_MAX} * var(y) = "
-           f"{MSE_MAX * var_y}")
+    _check(np.isfinite(mse) and mse < mse_max * var_y,
+           f"test MSE {mse} not below {mse_max} * var(y) = "
+           f"{mse_max * var_y}")
     pred = model_path + "_predict.txt"
     with open(pred) as f:
         header = f.readline()
@@ -768,7 +795,7 @@ def phase_main(train: str, test: str, model_path: str):
     yh = np.empty(yt.shape[0])
     yh[np.argsort(yt, kind="stable")] = table[:, 2]
     print(f"main path: MSE {mse:.6g} = {mse / var_y:.4f} var(y) "
-          f"(limit {MSE_MAX}); {yt.shape[0]} predictions, finite, std > 0")
+          f"(limit {mse_max}); {yt.shape[0]} predictions, finite, std > 0")
     return yh
 
 
@@ -853,19 +880,24 @@ def phase_setup_split(server):
           f"potrf {chol_ms:.4f} ms, L^-1 {linv_ms:.4f} ms")
 
 
-def phase_dense_train(train: str, workdir: str):
-    """`train -# 5` through the CLI entry point in float32 from the
-    flagship defaults; returns (model path, the fit's evaluation count)."""
+def phase_dense_train(train: str, workdir: str, lf: str = "Gauss"):
+    """`train -# 5 -lf <lf>` through the CLI entry point in float32 from
+    the flagship defaults; returns (model path, the fit's evaluation
+    count). -logL must decrease (for a warped likelihood: not
+    increase), and the training MSE be finite."""
     import torch
 
     from gp_ss_ak_torch import cli
 
-    model_path = os.path.join(workdir, "trained")
+    warped = lf != "Gauss"
+    model_path = os.path.join(workdir,
+                              "trained_warped" if warped else "trained")
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["-v", "1", "train", "-#", "5", train, model_path])
+        rc = cli.main(["-v", "1", "train", "-#", "5", "-lf", lf, train,
+                       model_path])
     wall = time.perf_counter() - t0
     text = out.getvalue()
     print("cli train:", " | ".join(text.strip().splitlines()),
@@ -875,10 +907,16 @@ def phase_dense_train(train: str, workdir: str):
                   r"stop: (\S+)\)", text)
     _check(m is not None, "cli train printed no -logL line")
     first, last = float(m.group(1)), float(m.group(2))
-    _check(np.isfinite(first) and np.isfinite(last) and last < first,
+    _check(np.isfinite(first) and np.isfinite(last)
+           and (last <= first if warped else last < first),
            f"-logL did not decrease: {first} -> {last}")
-    print(f"dense train: -logL {first} -> {last}, {m.group(3)} iterations, "
-          f"{m.group(4)} evaluations, stop reason {m.group(5)}; peak device "
+    mse = float(re.search(r"Mean Square Error of training: (\S+)",
+                          text).group(1))
+    var_y = float(re.search(r"Var MSE Train: (\S+)", text).group(1))
+    _check(np.isfinite(mse), f"training MSE {mse}")
+    print(f"dense train (-lf {lf}): -logL {first} -> {last}, {m.group(3)} "
+          f"iterations, {m.group(4)} evaluations, stop reason {m.group(5)}; "
+          f"training MSE {mse:.6g} = {mse / var_y:.4f} var(y); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return model_path, int(m.group(4))
 
@@ -986,6 +1024,7 @@ def phase_dense_eval_split(device, train: str, test: str, model_path: str):
           f"{whole * 1e3:.3f} ms (host clock, unprofiled, -logL "
           f"{val:.6f})")
     torch.cuda.empty_cache()
+    return whole * 1e3
 
 
 def _iterative_gp(model, Xtrs, device):
@@ -1140,10 +1179,11 @@ def phase_iter_eval_split(device, seed: int, model, Xtrs, ytrs):
 def phase_train_default(itrain: str, workdir: str):
     """`train -# 1` through the CLI at N_ITER_TRAIN with the default
     `--engine auto`, the route a user gets there: the iterative engine in
-    the mode the card's thresholds pick, then the CLI's dense
-    training-set predict. Under torch.profiler (per-evaluation and
-    predict time); peak device memory. Returns (the evaluation count,
-    the mode)."""
+    the mode the card's thresholds pick, then the CLI's training-set
+    predict by that mode (chol: the dense mean in 4096-query chunks).
+    Under torch.profiler (per-evaluation and predict time); peak device
+    memory, held to 8 N^2 bytes + DEFAULT_ROUTE_SLACK_GIB. Returns (the
+    evaluation count, the mode)."""
     import torch
 
     from gp_ss_ak_torch import cli
@@ -1185,6 +1225,12 @@ def phase_train_default(itrain: str, workdir: str):
           f"peak device memory {peak:.3f} GiB")
     print(f"default train route, device time: "
           f"{_split_text(split, labels, wall, total, top)}")
+    limit = 8.0 * N_ITER_TRAIN ** 2 / 2**30 + DEFAULT_ROUTE_SLACK_GIB
+    print(f"default train route: peak device memory {peak:.3f} GiB (limit "
+          f"8 N^2 bytes + {DEFAULT_ROUTE_SLACK_GIB} GiB = {limit:.3f} GiB); "
+          f"training-set predict {split['cmd_train.predict'][2] / 1e3:.3f} s "
+          f"host clock (profiled)")
+    _check(peak <= limit, f"default train route peaked at {peak:.3f} GiB")
     _check(np.isfinite(first) and np.isfinite(last) and last <= first,
            f"default train route: -logL {first} -> {last}")
     _check(np.isfinite(mse) and mse < MSE_MAX * var_y,
@@ -1260,9 +1306,11 @@ def _load_case(device, dtype, train: str, test: str, model_path: str):
     return model, stats, Xtrs, ytrs, apply(stats, Xt), yt
 
 
-def phase_iter_vs_dense(device, train: str, test: str, model_path: str):
+def phase_iter_vs_dense(device, train: str, test: str, model_path: str,
+                        label: str = ""):
     """IterativePredictor (float32) vs the dense Predictor in float64 on
-    the same 512 queries of the N = 16384 case."""
+    the same 512 queries of the N = 16384 case (a warped model's means
+    and variances after the warp mix)."""
     import torch
 
     from gp_ss_ak_torch.serve import IterativePredictor, Predictor
@@ -1282,16 +1330,17 @@ def phase_iter_vs_dense(device, train: str, test: str, model_path: str):
     err_mu = float(np.max(np.abs(mu_i - mu_d)))
     tol_mu = ITER_MEAN_TOL * float(np.std(ytrs))
     rel_var = float(np.max(np.abs(var_i - var_d) / var_d))
-    print(f"iterative vs dense f64 (N={Xtrs.shape[0]}, 512 queries, rank "
+    print(f"{label}iterative vs dense f64 (N={Xtrs.shape[0]}, 512 queries, rank "
           f"{it.precond_rank}): max |mu diff| {err_mu:.3e} (tol "
           f"{tol_mu:.3e}), max var rel diff {rel_var:.3e} (tol "
           f"{ITER_VAR_RTOL}); setup {setup_s:.3f} s, setup_cg_iters "
           f"{it.setup_cg_iters}, last_cg_iters {it.last_cg_iters}")
     _check(bool(np.all(np.isfinite(mu_i)) and np.all(var_i > 0)),
-           "iterative: non-finite mean or var <= 0")
-    _check(err_mu <= tol_mu, "iterative means disagree with dense f64")
+           f"{label}iterative: non-finite mean or var <= 0")
+    _check(err_mu <= tol_mu, f"{label}iterative means disagree with dense "
+           f"f64")
     _check(rel_var <= ITER_VAR_RTOL,
-           "iterative variances disagree with dense f64")
+           f"{label}iterative variances disagree with dense f64")
 
 
 def phase_iter_serve(device, train: str, test: str, model_path: str,
@@ -1337,7 +1386,7 @@ def phase_iter_serve(device, train: str, test: str, model_path: str,
           f"of the median request ~ {iters[0]} passes x {k3_ms:.3f} ms / "
           f"{med * 1e3:.3f} ms = {iters[0] * k3_ms / (med * 1e3):.3f}")
     _check(diff <= tol, "IterativePredictor means disagree with the CLI's")
-    return server, ytrs
+    return server, ytrs, med
 
 
 def phase_iter_setup_split(server, ytrs):
@@ -1364,6 +1413,182 @@ def phase_iter_setup_split(server, ytrs):
           f"{solve_s / max(int(it), 1) * 1e3:.3f} ms each)")
 
 
+def phase_warped_eval(device, train: str, test: str, model_path: str):
+    """Outside the counted runs, host clock up to a synchronize: one
+    warped dense NLML + gradient evaluation (make_value_and_grad, as the
+    fit calls it) at N_TRAIN in float32, and the warp mix
+    (gaussian.warped_predictive_mix) of one batch of TRAIN_PREDICT_CHUNK
+    latent Gaussians: means g(y) at that many training targets, variance
+    1.05 sn2. Returns (evaluation ms, mix ms)."""
+    import torch
+
+    from gp_ss_ak_torch.cli import TRAIN_PREDICT_CHUNK
+    from gp_ss_ak_torch.inference import (quadrature, warped_predictive_mix,
+                                          warping)
+    from gp_ss_ak_torch.optim import make_value_and_grad
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    vg = make_value_and_grad(model, Xtrs, ytrs)
+    x = model.pack().cpu().numpy().astype(np.float64)
+    vg(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        val, _ = vg(x)
+    eval_ms = (time.perf_counter() - t0) / 3 * 1e3
+    lik, lh = model.likelihood, model.lik_hypers
+    yall = torch.as_tensor(ytrs, dtype=torch.float32, device=device)
+    ymax = torch.max(yall)
+    mu, _ = lik.effective_target(lh, yall[:TRAIN_PREDICT_CHUNK], ymax)
+    var = 1.05 * lik.noise_variance(lh) * torch.ones_like(mu)
+
+    def mix():
+        return warped_predictive_mix(lik, lh, mu, var, ymax)
+
+    mix()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mu_w, var_w = mix()
+    torch.cuda.synchronize()
+    mix_ms = (time.perf_counter() - t0) / 5 * 1e3
+    nodes = torch.as_tensor(quadrature.gauss_hermite(20)[0],
+                            dtype=torch.float32, device=device)
+    Z = mu[:, None] + torch.sqrt(var)[:, None] * nodes[None, :]
+    _, _, n_low, n_up = warping.bracket(lik.family, lik.warp_hypers(lh), Z,
+                                        ymax)
+    _check(bool(torch.isfinite(mu_w).all() and (var_w > 0).all()),
+           "warp mix: non-finite mean or var <= 0")
+    print(f"warped dense evaluation at N={Xtrs.shape[0]} f32 ({WARP_LF}): "
+          f"{eval_ms:.3f} ms per value and gradient (host clock, "
+          f"-logL {val:.6f}); warp mix of {mu.shape[0]} latent Gaussians "
+          f"x 20 nodes: {mix_ms:.3f} ms ({n_low} + {n_up} bracketing "
+          f"steps, 12 bisection and 12 Newton rounds)")
+    return eval_ms, mix_ms
+
+
+def phase_warped_iter_serve(device, train: str, test: str, model_path: str,
+                            k3_ms: float, plain_s=None):
+    """One warped IterativePredictor at N_ITER_TRAIN, then
+    WARP_ITER_REQUESTS requests of ITER_REQUEST_SIZE queries (each pays
+    its variance solve and the warp mix). k3_ms: K3's time for one pass
+    at the request's width; plain_s: this run's plain Gaussian request
+    median, if measured."""
+    import torch
+
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    model, _, Xtrs, ytrs, Xts, _ = _load_case(device, torch.float32, train,
+                                              test, model_path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = IterativePredictor(model, Xtrs, ytrs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _check(server.warped, "the warped model was served as a Gaussian")
+    size = ITER_REQUEST_SIZE
+    lat, iters = [], []
+    for k in range(WARP_ITER_REQUESTS):
+        q = Xts[k * size:(k + 1) * size]
+        t0 = time.perf_counter()
+        mu, var = server(q, batch_size=size)   # host arrays: work done
+        lat.append(time.perf_counter() - t0)
+        iters.append(server.last_cg_iters)
+        _check(bool(np.all(np.isfinite(mu)) and np.all(var > 0)),
+               f"warped iterative request {k}: non-finite mean or var <= 0")
+    med = float(np.median(lat))
+    plain = "not measured" if plain_s is None else f"{plain_s:.4f} s"
+    print(f"warped iterative serve (N={Xtrs.shape[0]}, {WARP_LF}): setup "
+          f"{setup_s:.4f} s (rank {server.precond_rank}, setup_cg_iters "
+          f"{server.setup_cg_iters}); {WARP_ITER_REQUESTS} requests x "
+          f"{size}: {[round(t, 4) for t in lat]} s, CG iterations {iters}; "
+          f"K3 share of the median ~ {iters[0]} passes x {k3_ms:.3f} ms / "
+          f"{med * 1e3:.3f} ms = {iters[0] * k3_ms / (med * 1e3):.3f}; the "
+          f"plain Gaussian's median request in this run {plain}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB")
+
+
+def phase_warped_identity_eval(device, seed: int, train: str, test: str,
+                               model_path: str):
+    """One stream-mode make_iterative_value_and_grad evaluation at
+    N_ITER_TRAIN of the Gaussian model with an identity-like warp
+    (a = exp(-12), exp(2 theta) = SN2) against the plain Gaussian's with
+    the same probes: the value within MODE_VAL_*, the kernel's gradient
+    entries within MODE_GRAD_*, all but the bias's: its float32
+    cancellation spreads by more than MODE_GRAD_ABS between any two
+    runs on other targets (phase_iter_modes does not gate it either;
+    0.29 of 51.7 on an H100 here, where float64 moves it by ~3e-4).
+    And against the plain model run on the warped targets g(y) with the
+    same noise: the kernel's entries equal bit for bit, the value less
+    sum log g'(y), so the warp's chain rule adds nothing to the kernel's
+    gradient."""
+    import torch
+
+    from gp_ss_ak_torch.inference import WarpedGaussian
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.optim import make_iterative_value_and_grad
+
+    f32 = torch.float32
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, f32, train, test,
+                                            model_path)
+    n, nk = ytrs.shape[0], model.kernel.n_params
+    key = torch.Generator(device=device).manual_seed(seed)
+    probes = dict(Z_trace=ti.rademacher(key, (n, 8)),
+                  Z_logdet=ti.rademacher(key, (n, 64)))
+    wlik = WarpedGaussian("tanh1", 1)
+    wmodel = dataclasses.replace(model, likelihood=wlik, lik_hypers=(
+        torch.tensor([-12.0, 0.0, 0.0, 0.5 * np.log(SN2)], dtype=f32,
+                     device=device)))
+    gy, lgpy = wlik.effective_target(
+        wmodel.lik_hypers, torch.as_tensor(ytrs, dtype=f32, device=device))
+    on_gy = dataclasses.replace(
+        model, lik_hypers=wlik.noise_variance(wmodel.lik_hypers)[None])
+    out = {}
+    for name, m, y in (("plain", model, ytrs), ("warped", wmodel, ytrs),
+                       ("plain on g(y)", on_gy, gy.cpu().numpy())):
+        vg = make_iterative_value_and_grad(m, Xtrs, y, mode="stream",
+                                           **probes)
+        x = m.pack().cpu().numpy().astype(np.float64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, grad = vg(x)
+        out[name] = (val, grad, vg.last_cg_iters,
+                     time.perf_counter() - t0)
+        print(f"identity-like warp, {name} at N={n} (stream): value "
+              f"{val:.6f}, kernel gradient {np.round(grad[:nk], 6).tolist()}"
+              f", likelihood gradient {np.round(grad[nk:], 6).tolist()}, "
+              f"{out[name][2]} CG iterations, {out[name][3]:.3f} s")
+
+    def within(a, b, rel, abs_):
+        return abs(a - b) <= abs_ + rel * abs(b)
+
+    (vp, gp, _, _), (vw, gw, _, _), (vg_, gg, _, _) = out.values()
+    sum_lgpy = float(torch.sum(lgpy))
+    share = np.abs(gw[:nk] - gp[:nk]) / (MODE_GRAD_ABS
+                                          + MODE_GRAD_REL * np.abs(gp[:nk]))
+    print(f"identity-like warp: |warped - plain| value {abs(vw - vp):.3e} "
+          f"(limit {MODE_VAL_ABS + MODE_VAL_REL * abs(vp):.3e}), kernel "
+          f"gradient {np.abs(gw[:nk] - gp[:nk]).tolist()}, each at "
+          f"{np.round(share, 3).tolist()} of its limit (the bias's, last, "
+          f"not gated); sum log g'(y) {sum_lgpy:.6f}; warped vs plain on "
+          f"g(y): kernel gradient equal {np.array_equal(gw[:nk], gg[:nk])}, "
+          f"value gap {vg_ - vw:.6f}")
+    _check(within(vw, vp, MODE_VAL_REL, MODE_VAL_ABS),
+           "identity-like warp: value disagrees with the plain Gaussian's")
+    for i in range(nk - 1):
+        _check(within(gw[i], gp[i], MODE_GRAD_REL, MODE_GRAD_ABS),
+               f"identity-like warp: kernel gradient entry {i} disagrees "
+               f"with the plain Gaussian's")
+    _check(np.array_equal(gw[:nk], gg[:nk]), "the warped kernel gradient "
+           "differs from the plain one on g(y)")
+    _check(within(vw, vg_ - sum_lgpy, 1e-6, 0.0), "the warped value is not "
+           "the plain one on g(y) less sum log g'(y)")
+    _check(bool(np.all(np.isfinite(gw[nk:]))), "non-finite warp gradient")
+    torch.cuda.empty_cache()
+
+
 def _kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1373,11 +1598,87 @@ def _kernel_entry(name, source, replaces, launches, report):
             else "operations", "library_ms": None}
 
 
+def predict_k1(n: int) -> int:
+    """K1 launches of the CLI train's dense training-set predict at n
+    training points: A, then one cross-Gram per chunk of queries."""
+    from gp_ss_ak_torch.cli import TRAIN_PREDICT_CHUNK
+
+    return 1 + -(-n // TRAIN_PREDICT_CHUNK)
+
+
+def run_warped_dense(device, seed: int, zero, counts):
+    """Counted: the warped dense round trip (phase 9b); then, outside
+    the count, its evaluation and mix times and the warped iterative vs
+    dense comparison (10b). Returns (its K1 launches, the trained model
+    path)."""
+    import torch
+
+    wtrain, wtest, _ = write_case(WORK + "_warped", seed, N_TRAIN, N_TEST,
+                                  skew=True)
+    zero()
+    wmodel, w_evals = phase_dense_train(wtrain, os.path.dirname(wtrain),
+                                        lf=WARP_LF)
+    phase_main(wtrain, wtest, wmodel, mse_max=WARP_MSE_MAX)
+    want = (w_evals + predict_k1(N_TRAIN) + 2, 0, 0)
+    _check(counts() == want,
+           f"warped train + test: expected {want[0]} K1 launches ({w_evals} "
+           f"for the fit, {predict_k1(N_TRAIN)} for its training-set "
+           f"predict, 2 for test) and no K2 or K3; saw (K1, K2, K3) = "
+           f"{counts()}")
+    k1 = counts()[0]
+    phase_warped_eval(device, wtrain, wtest, wmodel)
+    phase_iter_vs_dense(device, wtrain, wtest, wmodel, label="warped ")
+    torch.cuda.empty_cache()
+    return k1, wmodel
+
+
+def run_warped_iterative(device, seed: int, zero, counts, wmodel: str,
+                         itrain: str, itest: str, imodel: str,
+                         k3_ms: float, plain_s=None):
+    """Counted: the warped matrix-free path (phase 11b) at N_ITER_TRAIN.
+    Returns its (K1, K3) launches."""
+    import torch
+
+    from gp_ss_ak_torch.model import load_model
+
+    wtrain, wtest, wimodel = write_case(
+        WORK + "_iterative_warped", seed, N_ITER_TRAIN, N_ITER_TEST,
+        skew=True, model=load_model(wmodel, device="cpu"))
+    zero()
+    phase_warped_iter_serve(device, wtrain, wtest, wimodel, k3_ms, plain_s)
+    phase_warped_identity_eval(device, seed, itrain, itest, imodel)
+    k1, k2, k3 = counts()
+    print(f"warped matrix-free path: (K1, K2, K3) launches {counts()}")
+    _check(k1 > 0 and k3 > 0 and k2 == 0,
+           f"warped matrix-free path: (K1, K2, K3) = {counts()}")
+    torch.cuda.empty_cache()
+    return k1, k3
+
+
+def run_train_default(itrain: str, zero, counts):
+    """Counted: the default train route at N_ITER_TRAIN (phase 13).
+    Returns its (K1, K3) launches."""
+    zero()
+    n_evals, mode = phase_train_default(itrain, os.path.dirname(itrain))
+    if mode == "chol":
+        want = (n_evals + predict_k1(N_ITER_TRAIN), 0, 0)
+        _check(counts() == want,
+               f"default train route: expected {n_evals} K1 launches for "
+               f"the fit (chol mode) and {predict_k1(N_ITER_TRAIN)} for its "
+               f"training-set predict, and no K2 or K3; saw (K1, K2, K3) = "
+               f"{counts()}")
+    else:
+        _check(counts()[2] > 0, f"default train route ({mode} mode) "
+               f"launched no K3: (K1, K2, K3) = {counts()}")
+    return counts()[0], counts()[2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3",),
-                    help="run phases 1, 2 and 4 only, and print no result")
+    ap.add_argument("--only", choices=("k3", "warped"),
+                    help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
+                         "10b, 11b and 13. Neither prints a result")
     args = ap.parse_args(argv)
 
     import torch
@@ -1396,17 +1697,29 @@ def main(argv=None) -> int:
         phase_k3(device, args.seed)
         print(f"K3 phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
-    k1 = phase_k1(device, args.seed)
-    k3 = phase_k3(device, args.seed)
-    k2 = phase_k2(device, args.seed)
-    phase_golden(device)
-    train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
     def zero():
         pairwise.launches = matvec.launches = matvec.matvec_launches = 0
 
     def counts():
         return pairwise.launches, matvec.matvec_launches, matvec.launches
+
+    if args.only == "warped":
+        _, wmodel = run_warped_dense(device, args.seed, zero, counts)
+        itrain, itest, imodel = write_case(WORK + "_iterative", args.seed,
+                                           N_ITER_TRAIN, N_ITER_TEST)
+        k3_ms = k3_times(device, args.seed, ((ITER_REQUEST_SIZE, 3),))[0]
+        run_warped_iterative(device, args.seed, zero, counts, wmodel, itrain,
+                             itest, imodel, k3_ms[ITER_REQUEST_SIZE][0])
+        run_train_default(itrain, zero, counts)
+        print(f"warped phases passed in {time.perf_counter() - t_start:.1f} "
+              f"s")
+        return 0
+    k1 = phase_k1(device, args.seed)
+    k3 = phase_k3(device, args.seed)
+    k2 = phase_k2(device, args.seed)
+    phase_golden(device)
+    train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
     # counted run 1, the dense serving path: CLI test + dense serving
     zero()
@@ -1426,12 +1739,17 @@ def main(argv=None) -> int:
     zero()
     trained, n_evals = phase_dense_train(train, WORK)
     phase_main(train, test, trained)
-    _check(counts() == (n_evals + 4, 0, 0),
+    want = (n_evals + predict_k1(N_TRAIN) + 2, 0, 0)
+    _check(counts() == want,
            f"dense train + test: expected {n_evals} K1 launches for the "
-           f"fit, 2 for its training-set predict and 2 for test, and no "
-           f"K2 or K3; saw (K1, K2, K3) = {counts()}")
+           f"fit, {predict_k1(N_TRAIN)} for its training-set predict and 2 "
+           f"for test, and no K2 or K3; saw (K1, K2, K3) = {counts()}")
     k1_launches += pairwise.launches
     phase_dense_eval_split(device, train, test, trained)
+
+    # counted run 2b, the warped dense round trip
+    k1_w, wmodel = run_warped_dense(device, args.seed, zero, counts)
+    k1_launches += k1_w
 
     phase_iter_vs_dense(device, train, test, model_path)
     phase_iter_modes(device, args.seed, train, test, model_path)
@@ -1447,8 +1765,8 @@ def main(argv=None) -> int:
           f"{cli_k3}, K1 cross launches {cli_k1}")
     _check(cli_k3 > 0, "auto engine did not pick the iterative server")
     _check(cli_k1 > 0, "iterative cli test made no K1 cross launch")
-    iserver, ytrs = phase_iter_serve(device, itrain, itest, imodel, yh_it,
-                                     k3[ITER_REQUEST_SIZE][0])
+    iserver, ytrs, plain_s = phase_iter_serve(
+        device, itrain, itest, imodel, yh_it, k3[ITER_REQUEST_SIZE][0])
     print(f"iterative serve: K3 launches {matvec.launches - cli_k3}")
     _check(pairwise.launches > cli_k1 and matvec.launches > cli_k3,
            "iterative serving launched no K1 or no K3")
@@ -1457,6 +1775,13 @@ def main(argv=None) -> int:
     phase_iter_setup_split(iserver, ytrs)
     del iserver
     torch.cuda.empty_cache()
+
+    # counted run 3b, the warped matrix-free path
+    k1_w, k3_w = run_warped_iterative(
+        device, args.seed, zero, counts, wmodel, itrain, itest, imodel,
+        k3[ITER_REQUEST_SIZE][0], plain_s)
+    k1_launches += k1_w
+    k3_launches += k3_w
 
     # counted run 4, matrix-free training (stream mode)
     zero()
@@ -1468,19 +1793,10 @@ def main(argv=None) -> int:
     phase_iter_eval_split(device, args.seed, start, Xfit, yfit)
 
     # counted run 5, the default train route past DENSE_MAX_N: the CLI
-    # with --engine auto, then its dense training-set predict
-    zero()
-    n_evals, mode = phase_train_default(itrain, WORK)
-    if mode == "chol":
-        _check(counts() == (n_evals + 2, 0, 0),
-               f"default train route: expected {n_evals} K1 launches for "
-               f"the fit (chol mode) and 2 for its training-set predict, "
-               f"and no K2 or K3; saw (K1, K2, K3) = {counts()}")
-    else:
-        _check(matvec.launches > 0, f"default train route ({mode} mode) "
-               f"launched no K3: (K1, K2, K3) = {counts()}")
-    k3_launches += matvec.launches
-    k1_launches += pairwise.launches
+    # with --engine auto, then its training-set predict
+    k1_d, k3_d = run_train_default(itrain, zero, counts)
+    k1_launches += k1_d
+    k3_launches += k3_d
     torch.cuda.empty_cache()
 
     # counted run 6, the K2 path: nlml_iterative without a preconditioner

@@ -6,9 +6,11 @@ gp_ss_ak_tpu, which stays in the repository as the reference. Module
 names mirror gp_ss_ak_tpu's. This package imports torch and numpy,
 never jax and never gp_ss_ak_tpu.
 
-Ported so far: the serving and training paths — data IO and
-standardization, the kernel library, model files, exact Gaussian
-inference with its gradients, the host optimizers and `optim.fit`, the
+Ported so far: the serving and training paths — data IO (with the
+native text parser) and standardization, the kernel library, model
+files, exact Gaussian and warped-Gaussian inference with their
+gradients, the jitter-retry factorization, the host optimizers and
+`optim.fit`, the
 matrix-free engine (inference/iterative.py: CG, SLQ, the Hutchinson
 gradient), the dense `serve.Predictor`, the matrix-free
 `serve.IterativePredictor`, and the CLI's `train` and `test`. On a GPU

@@ -18,7 +18,17 @@ for the CPU.
 `train` fits the hyperparameters (optim.fit: dense, or matrix-free past
 DENSE_MAX_N on a GPU), writes the reference-format model file,
 MODEL_NAME_Statistics.txt and MODEL_NAME_metrics.json, and prints the
-training-set MSE and var(y). `test` serves the flagship model through
+training-set MSE and var(y). `-lf WarpGauss[:family[:m]]` trains the
+warped Gaussian likelihood (family tanh1, rbf or srbf, m triplets; the
+JAX CLI's parsing). The training-set mean behind that MSE comes from
+the engine the fit ran (`_training_mean`): after a dense or chol-mode
+fit, the exact dense predict over chunks of TRAIN_PREDICT_CHUNK
+queries, with no variance solve for a plain Gaussian; after a gemm- or
+stream-mode fit, the
+matrix-free `serve.IterativePredictor`. The JAX CLI predicts densely
+with the full N x N cross-Gram at every N (gp_ss_ak_tpu/cli.py:216-219),
+16 N^2 bytes at its peak; this keeps the peak at the factorization's
+8 N^2. `test` serves the flagship model (plain or warped) through
 the matrix-free `serve.IterativePredictor` past ITERATIVE_MIN_N training
 points (`--engine auto`) or on `--engine iterative`, else through one
 dense factorize-and-predict; it prints MSE and var(y) (two bare numbers
@@ -26,8 +36,7 @@ at verbose 0, labeled at verbose > 0 — gp_ss_ak.cpp:312-325, 417-430)
 and writes the reference prediction file (gp_ss_ak.cpp:434-481) plus,
 unless --no-plot, the Observed-vs-Estimated plot.
 
-Not ported (exit 1, naming the module): the warped likelihood
-(`-lf WarpGauss`, inference/warping.py), the mesh engines
+Not ported (exit 1, naming the module): the mesh engines
 (`--engine dist|ring`, parallel/), the whole-fit device optimizer
 (`-o JIT`, optim/jax_lbfgs.py) and the segmented evaluator
 (`--segmented`, optim/segmented.py).
@@ -36,6 +45,7 @@ Not ported (exit 1, naming the module): the warped likelihood
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 from dataclasses import replace
 
@@ -47,6 +57,9 @@ from gp_ss_ak_torch.optim.iterative_fit import DENSE_MAX_N
 #: size (the dense K + chol wall of a 16 GB TPU, gp_ss_ak_tpu/cli.py:
 #: 264-266); kept for parity, still to be re-derived for an 80 GB H100
 ITERATIVE_MIN_N = 32768
+#: queries per chunk of train's dense training-set predict: the cross-Gram
+#: it holds is N x TRAIN_PREDICT_CHUNK
+TRAIN_PREDICT_CHUNK = 4096
 
 
 def _add_device(p) -> None:
@@ -146,22 +159,60 @@ def _not_ported(what: str) -> int:
     return 1
 
 
+def _training_mean(model, Xs, ys, engine: str, device, dtype):
+    """The predictive mean at the training inputs, for the printed MSE,
+    by the engine and mode the fit ran: a dense or chol-mode fit held A
+    and L on the device, so the exact dense predict runs
+    (gaussian.posterior_mean over TRAIN_PREDICT_CHUNK queries at a time,
+    no N x N cross-Gram);
+    a gemm- or stream-mode fit could not, so the matrix-free server
+    gives the mean (a warped model there still pays the variance
+    solves, as the JAX server does)."""
+    import torch
+
+    from gp_ss_ak_torch.inference import factorize, posterior_mean
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.optim import resolve_engine
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    n = Xs.shape[0]
+    if (resolve_engine(engine, n, model) == "iterative"
+            and ti.choose_mode(n, "auto", device) != "chol"):
+        mu, _ = IterativePredictor(model, Xs, ys)(Xs, mean_only=True)
+        return mu
+    X = torch.as_tensor(Xs, dtype=dtype, device=device)
+    y = torch.as_tensor(ys, dtype=dtype, device=device)
+    post = factorize(model.kernel, model.kernel_params, model.lik_hypers,
+                     X, y, model.likelihood)
+    return posterior_mean(model.kernel, model.kernel_params,
+                          model.lik_hypers, X, post, X, model.likelihood,
+                          chunk=TRAIN_PREDICT_CHUNK).cpu().numpy()
+
+
 def cmd_train(args) -> int:
     import torch
 
     from gp_ss_ak_torch.data import prepare, read_data, unapply_y
-    from gp_ss_ak_torch.inference import predict
+    from gp_ss_ak_torch.inference import WarpedGaussian, warping
     from gp_ss_ak_torch.model import default_model, save_model
     from gp_ss_ak_torch.optim import fit
     from gp_ss_ak_torch.utils import FitLogger
 
     lf = args.likefunction
+    wlik = None
     if lf != "Gauss":
-        if lf.split(":")[0] in ("WarpGauss", "warpgauss"):
-            return _not_ported(f"-lf {lf} (the warped likelihood, "
-                               "inference/warping.py)")
-        print(f"Unknown likelihood function: {lf}", file=sys.stderr)
-        return 1
+        # "WarpGauss[:family[:m]]" (gp_ss_ak_tpu/cli.py:132-147): the
+        # reference wires only Gauss in its CLI (gp_ss_ak.cpp:192)
+        parts = lf.split(":")
+        if parts[0] not in ("WarpGauss", "warpgauss"):
+            print(f"Unknown likelihood function: {lf}", file=sys.stderr)
+            return 1
+        family = parts[1] if len(parts) > 1 else warping.TANH1
+        if family not in warping.FAMILIES:
+            raise ValueError(f"unknown warp family {family!r}")
+        wlik = WarpedGaussian(family=family,
+                              n_triplets=int(parts[2]) if len(parts) > 2
+                              else 1)
     if args.engine in ("dist", "ring"):
         return _not_ported(f"--engine {args.engine} (the mesh engines, "
                            "parallel/)")
@@ -184,6 +235,9 @@ def cmd_train(args) -> int:
     model = default_model(input_dim=X.shape[1], kernel_names=names,
                           knoise=bool(args.Knoise), dtype=dtype,
                           device=device)
+    if wlik is not None:
+        model = replace(model, likelihood=wlik,
+                        lik_hypers=wlik.default_hypers(dtype, device))
     if args.init_params:
         vals = [float(t) for t in args.init_params.split(",")]
         if len(vals) != model.kernel.n_params:
@@ -193,8 +247,15 @@ def cmd_train(args) -> int:
         model = replace(model, kernel_params=model.kernel.unpack(
             torch.tensor(vals, dtype=dtype, device=device)))
     if args.init_lik is not None:
-        model = replace(model, lik_hypers=torch.tensor(
-            [args.init_lik], dtype=dtype, device=device))
+        if wlik is not None:
+            # warped models parameterize the noise as exp(2 theta_last):
+            # write into the last hyper, keep the warp triplets
+            lh = model.lik_hypers.clone()
+            lh[-1] = 0.5 * math.log(max(args.init_lik, 1e-12))
+            model = replace(model, lik_hypers=lh)
+        else:
+            model = replace(model, lik_hypers=torch.tensor(
+                [args.init_lik], dtype=dtype, device=device))
 
     if args.verbose > 0:
         print(f"Optimizing {model.n_params} hyperparameters with "
@@ -214,16 +275,11 @@ def cmd_train(args) -> int:
               f"{res.stop_reason})")
     save_model(fitted, args.model_name)
 
-    # the training-set fit, dense at every N as in the JAX CLI
-    # (cli.py:216-219); a profiler range of its own
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
+    # the training-set fit, by the engine the fit ran; a profiler range
+    # of its own
     with torch.autograd.profiler.record_function("cmd_train.predict"):
-        mu, _ = predict(fitted.kernel, fitted.kernel_params,
-                        fitted.lik_hypers, t(Xs), t(ys), t(Xs),
-                        fitted.likelihood)
-    yh = unapply_y(stats, mu.cpu().numpy())
+        mu = _training_mean(fitted, Xs, ys, args.engine, device, dtype)
+    yh = unapply_y(stats, mu)
     mse = float(np.mean((y - yh) ** 2))
     var_y = float(np.mean((y - y.mean()) ** 2))
     if args.verbose > 0:

@@ -9,8 +9,9 @@ Prediction output (gp_ss_ak.cpp:471-481): header
 "# SampleNo, Y,  Yh, StdYh, Inputs", rows sorted by observed y
 ascending, tab-separated.
 
-A copy of gp_ss_ak_tpu/data/io.py with the pure-NumPy parser only;
-the ctypes fast-path parser (gp_ss_ak_tpu/native) is not ported yet.
+A copy of gp_ss_ak_tpu/data/io.py: `read_data` takes the native C++
+parser (gp_ss_ak_torch/native) when its library builds, and the
+pure-NumPy parser otherwise; both give the same table.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ def _parse_lines(text: str) -> np.ndarray:
 
 def read_data(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (X, y): last column is y (Control.cpp:61-77)."""
+    from gp_ss_ak_torch.native import loader
+
+    table = loader.parse_file(path)
+    if table is not None:
+        return table[:, :-1].copy(), table[:, -1].copy()
     with open(path, "r") as f:
         table = _parse_lines(f.read())
     if table.shape[1] < 2:

@@ -16,7 +16,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gp_ss_ak_torch.inference.likelihoods import Gaussian, make_likelihood
+from gp_ss_ak_torch.inference.likelihoods import (
+    Gaussian,
+    WarpedGaussian,
+    make_likelihood,
+)
 from gp_ss_ak_torch.kernels import Kernel, Sum, make_kernel
 
 
@@ -24,7 +28,7 @@ from gp_ss_ak_torch.kernels import Kernel, Sum, make_kernel
 class GPModel:
     kernel: Kernel
     kernel_params: object           # params matching kernel
-    likelihood: object              # Gaussian
+    likelihood: object              # Gaussian | WarpedGaussian
     lik_hypers: torch.Tensor
     mean_hypers: torch.Tensor = field(
         default_factory=lambda: torch.zeros((0,), dtype=torch.float64))
@@ -89,14 +93,15 @@ def default_model(input_dim: int, kernel_names: Optional[List[str]] = None,
 
 def from_flat(kernel_names: Sequence[str], flat, lik_hypers,
               input_dim: int, dtype: torch.dtype,
-              device: torch.device) -> GPModel:
-    """A Sum-of-`kernel_names` Gaussian model from a flat kernel vector.
+              device: torch.device, likelihood=None) -> GPModel:
+    """A Sum-of-`kernel_names` model from a flat kernel vector.
 
     Carries weights across from another implementation: `flat` is a
     reference-order flat vector whose first `kernel.n_params` entries
     are the kernel's (e.g. the JAX model's `np.asarray(model.pack())`,
     likelihood entries trailing), and `lik_hypers` the likelihood
-    vector, both as numpy arrays."""
+    vector, both as numpy arrays. `likelihood` defaults to Gaussian();
+    a warped model passes its WarpedGaussian(family, n_triplets)."""
     kern = Sum([make_kernel(n) for n in kernel_names])
     flat_t = torch.tensor(np.asarray(flat, np.float64), dtype=dtype,
                           device=device)
@@ -106,7 +111,7 @@ def from_flat(kernel_names: Sequence[str], flat, lik_hypers,
     return GPModel(
         kernel=kern,
         kernel_params=kern.unpack(flat_t[: kern.n_params]),
-        likelihood=Gaussian(),
+        likelihood=Gaussian() if likelihood is None else likelihood,
         lik_hypers=torch.tensor(
             np.asarray(lik_hypers, np.float64).reshape(-1), dtype=dtype,
             device=device),
@@ -150,6 +155,12 @@ def save_model(model: GPModel, path: str,
                comment: str = "# GP_SS_AK Model File ") -> None:
     with open(path, "w") as out:
         out.write(comment + "\n")
+        if isinstance(model.likelihood, WarpedGaussian):
+            # comment marker (skipped by the reference's reader,
+            # StreamInt.h:81-85) so the warp family survives a round
+            # trip — the reference format stores only likelihood=1
+            out.write(f"# WarpFamily={model.likelihood.family} "
+                      f"Triplets={model.likelihood.n_triplets}\n")
         out.write(f"Inference={model.inference}\n")
         out.write(f"likelihood={model.likelihood.kind}\n")
         out.write(f"MeanFunction={model.mean_function}\n")
@@ -220,6 +231,21 @@ def _read_kernel(r: _LineReader, dtype, device):
     return kern, kern.unpack(flat)
 
 
+def _warp_comment(text: str, triplets: int):
+    """(family, triplets) of a warped likelihood from the "# WarpFamily=
+    ... Triplets=..." line that save_model writes; tanh1 and `triplets`
+    when the file has none (gp_ss_ak_tpu/model.py:228-240)."""
+    family = "tanh1"
+    for line in text.splitlines():
+        if line.startswith("# WarpFamily="):
+            toks = line[2:].split()
+            family = toks[0].split("=", 1)[1]
+            if len(toks) > 1 and toks[1].startswith("Triplets="):
+                triplets = int(toks[1].split("=", 1)[1])
+            break
+    return family, triplets
+
+
 def load_model(path: str, dtype: torch.dtype = torch.float64,
                device="cuda") -> GPModel:
     """Read a reference-format model file onto `device`: the card unless
@@ -230,7 +256,7 @@ def load_model(path: str, dtype: torch.dtype = torch.float64,
         text = f.read()
     r = _LineReader(text)
     inference = r.expect("Inference")
-    likelihood = make_likelihood(int(r.expect("likelihood")))
+    lik_kind = int(r.expect("likelihood"))
     mean_fn = r.expect("MeanFunction")
     num_data = int(r.expect("numData"))
     output_dim = int(r.expect("outputDim"))
@@ -243,6 +269,8 @@ def load_model(path: str, dtype: torch.dtype = torch.float64,
                   for _ in range(n_lik)]
     mean_hypers = [float(r.expect("Hyperparams_meanfunction"))
                    for _ in range(n_mean)]
+    likelihood = make_likelihood(
+        lik_kind, *_warp_comment(text, max(1, (n_lik - 1) // 3)))
     return GPModel(
         kernel=kern,
         kernel_params=kparams,

@@ -3,7 +3,12 @@ BFGS, SCG; numpy-only copies of gp_ss_ak_tpu/optim), the training
 entry point `fit` over the dense and matrix-free engines, and the
 matrix-free engine's model check."""
 
-from gp_ss_ak_torch.optim.api import fit, flat_nlml_fn, make_value_and_grad
+from gp_ss_ak_torch.optim.api import (
+    fit,
+    flat_nlml_fn,
+    make_value_and_grad,
+    resolve_engine,
+)
 from gp_ss_ak_torch.optim.bfgs import DenseBFGS
 from gp_ss_ak_torch.optim.iterative_fit import (
     DENSE_MAX_N,
@@ -23,6 +28,7 @@ __all__ = [
     "DenseBFGS",
     "flat_nlml_fn",
     "make_value_and_grad",
+    "resolve_engine",
     "make_iterative_value_and_grad",
     "supports_iterative",
     "DENSE_MAX_N",

@@ -87,6 +87,21 @@ def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0,
     return value_and_grad
 
 
+def resolve_engine(engine: str, n_data: int, model: GPModel) -> str:
+    """The engine `fit` runs for `engine`: "dense" or "iterative";
+    "auto" picks iterative when N > DENSE_MAX_N, the model supports it
+    and it lies on a CUDA device (off the card the streamed operator
+    runs its plain version), dense otherwise."""
+    eng = engine.lower()
+    if eng == "auto":
+        eng = ("iterative" if n_data > DENSE_MAX_N
+               and supports_iterative(model)
+               and model.pack().device.type == "cuda" else "dense")
+    if eng not in ("dense", "iterative"):
+        raise ValueError(f"Unrecognised engine: {engine}")
+    return eng
+
+
 class _TimedVGrad:
     """Wall-clock wrap that stays transparent: unknown attribute reads
     (last_cg_iters, last_rel_residual, precond_rank) forward to the
@@ -136,9 +151,7 @@ def fit(
 
     `engine`: "dense" (exact Cholesky NLML, inference/gaussian.py),
     "iterative" (matrix-free CG + SLQ, optim/iterative_fit.py; flagship
-    model only, float32), or "auto": iterative when N > DENSE_MAX_N, the
-    model supports it and the model lies on a CUDA device (off the card
-    the streamed operator runs its plain version), dense otherwise.
+    model only, float32), or "auto" (`resolve_engine`).
     `engine_opts` go to make_iterative_value_and_grad.
 
     Pass a dict as `timing` to receive {"backend_touch_s", "eval_s"
@@ -171,27 +184,22 @@ def fit(
         raise NotImplementedError(
             "the segmented evaluator (optim/segmented.py) is not ported "
             "to gp_ss_ak_torch: ROADMAP item 9")
-    eng = engine.lower()
     n_data = int(np.shape(X)[0])
-    if eng == "auto":
-        eng = ("iterative" if n_data > DENSE_MAX_N
-               and supports_iterative(model) and device.type == "cuda"
-               else "dense")
-        if n_data > DENSE_MAX_N and eng == "dense" and verbose >= 0:
-            import warnings
+    eng = resolve_engine(engine, n_data, model)
+    if (engine.lower() == "auto" and n_data > DENSE_MAX_N
+            and eng == "dense" and verbose >= 0):
+        import warnings
 
-            warnings.warn(
-                f"engine='auto' picked the dense path at N={n_data} "
-                "(no CUDA device or unsupported model); expect large "
-                "memory cost — pass engine='iterative' to force the "
-                "matrix-free route", stacklevel=2)
+        warnings.warn(
+            f"engine='auto' picked the dense path at N={n_data} "
+            "(no CUDA device or unsupported model); expect large "
+            "memory cost — pass engine='iterative' to force the "
+            "matrix-free route", stacklevel=2)
     if eng == "iterative":
         opts.setdefault("jitter", jitter)
         vgrad = make_iterative_value_and_grad(model, X, y, **opts)
-    elif eng == "dense":
-        vgrad = make_value_and_grad(model, X, y, jitter)
     else:
-        raise ValueError(f"Unrecognised engine: {engine}")
+        vgrad = make_value_and_grad(model, X, y, jitter)
 
     if timing is not None:
         walls: list = []

@@ -2,13 +2,19 @@
 space via CG + stochastic Lanczos (inference/iterative.py), chained back
 through the metric map so the box-constrained optimizers (optim/lbfgsb.py,
 optim/scg.py) drive it unchanged. Port of
-gp_ss_ak_tpu/optim/iterative_fit.py for the Gaussian likelihood.
+gp_ss_ak_tpu/optim/iterative_fit.py.
 
-  flat = [8 ExpAns params, bias, sn2]
+  flat = [8 ExpAns params, bias, lik hypers]
   Xm(angles, widths)  = (X - mean X) @ M            (ops/fused.py)
-  NLML(Xm, sigma, bias, sn2)                        (iterative.py)
+  NLML(Xm, sigma, bias, sn2; g(y))                  (iterative.py)
   d NLML/d angles,widths = autograd of Xm's map against d NLML/d Xm
   d NLML/d sigma,bias,sn2 = direct from the engine
+
+A warped model (WarpedGaussian) runs the engine on g(y) with
+sn2 = exp(2 theta_last) and subtracts sum log g'(y); its likelihood
+hypers take their gradient from the O(n) surrogate
+alpha' g(y) - sum log g'(y) + dNLML/dsn2 * sn2 with alpha = A^-1 g(y)
+and dNLML/dsn2 held fixed (A does not depend on the warp).
 
 The SLQ and Hutchinson probes are drawn ONCE per fit, from `seed` on the
 data's device (or injected), so the objective the line search sees is
@@ -30,11 +36,7 @@ from gp_ss_ak_torch.inference.iterative import (
     nlml_and_grad_iterative,
     rademacher,
 )
-from gp_ss_ak_torch.inference.likelihoods import (
-    LIK_WARPGAUSS,
-    WARPED_NOT_PORTED,
-    Gaussian,
-)
+from gp_ss_ak_torch.inference.likelihoods import Gaussian, WarpedGaussian
 from gp_ss_ak_torch.model import GPModel
 from gp_ss_ak_torch.ops.fused import _is_flagship, mapped_points
 
@@ -45,13 +47,12 @@ DENSE_MAX_N = 16384
 
 
 def supports_iterative(model: GPModel) -> bool:
-    """The flagship Sum([ExpAns, Bias]) with a Gaussian likelihood and
-    flat = [kernel params..., lik hypers] exactly (a model carrying mean
-    hypers is refused). The JAX package also takes WarpedGaussian; the
-    port does not have that likelihood yet."""
+    """The flagship Sum([ExpAns, Bias]) with a (warped) Gaussian
+    likelihood and flat = [kernel params..., lik hypers] exactly (a
+    model carrying mean hypers is refused)."""
     lik = model.likelihood
     return (_is_flagship(model.kernel)
-            and isinstance(lik, Gaussian)
+            and isinstance(lik, (Gaussian, WarpedGaussian))
             and model.n_params == model.kernel.n_params + lik.n_hypers)
 
 
@@ -84,8 +85,6 @@ def make_iterative_value_and_grad(
     they are drawn from `seed`. The closure carries `.last_cg_iters`,
     `.last_rel_residual` and `.precond_rank`; each call is a profiler
     range, "iterative_fit.value_and_grad"."""
-    if getattr(model.likelihood, "kind", None) == LIK_WARPGAUSS:
-        raise NotImplementedError(WARPED_NOT_PORTED)
     if not supports_iterative(model):
         raise ValueError(
             "iterative engine supports only Sum([ExpAns, Bias]) + "
@@ -94,10 +93,14 @@ def make_iterative_value_and_grad(
     f32 = torch.float32
     device = model.pack().device
     kernel = model.kernel
+    likelihood = model.likelihood
     expans = kernel.children[0]
     nk = kernel.n_params
+    nl = likelihood.n_hypers
+    warped = isinstance(likelihood, WarpedGaussian)
     Xd = torch.as_tensor(X, dtype=f32, device=device)
     yd = torch.as_tensor(y, dtype=f32, device=device)
+    ymax = torch.max(yd)
     n = Xd.shape[0]
     if Z_logdet is None or Z_trace is None:
         key_logdet = torch.Generator(device=device).manual_seed(seed)
@@ -114,19 +117,32 @@ def make_iterative_value_and_grad(
         flat = torch.tensor(np.asarray(x_np, np.float64), dtype=f32,
                             device=device, requires_grad=True)
         ep, bp = kernel.unpack(flat[:nk])
-        sn2 = flat[nk] + jitter
+        lh = flat[nk:nk + nl]
+        if warped:
+            gy, lgpy = likelihood.effective_target(lh, yd, ymax)
+        else:
+            gy = yd
+        sn2 = likelihood.noise_variance(lh) + jitter
         Xm = mapped_points(expans, ep, Xd)
         it_gp = IterativeGP(Xm=Xm.detach(), sigma=ep["Sigma"].detach(),
                             bias=bp["Sigma"].detach(), sn2=sn2.detach())
         val, (ds, db, dsn2, dXm), stats = nlml_and_grad_iterative(
-            it_gp, yd, None, None, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
-            probes=probes, lanczos_iters=lanczos_iters, chunk=chunk,
+            it_gp, gy.detach(), None, None, cg_tol=cg_tol,
+            cg_maxiter=cg_maxiter, probes=probes,
+            lanczos_iters=lanczos_iters, chunk=chunk,
             precond_rank=precond_rank, slq_probes=slq_probes, mode=mode,
             Z_logdet=Z_logdet, Z_trace=Z_trace)
         # the chain rule in one backward: Xm's map (angles, widths) plus
         # the direct sigma / bias / sn2 terms
         surrogate = (torch.sum(Xm * dXm) + ep["Sigma"] * ds
                      + bp["Sigma"] * db + sn2 * dsn2)
+        if warped:
+            # NLML_w = NLML(g(y; w); sn2(w)) - sum log g'(y; w), and
+            # d(fit)/dw = alpha' dg/dw with alpha = A^-1 g(y) fixed (A
+            # does not depend on w); sn2's chain rides sn2 * dsn2 above
+            val = val - torch.sum(lgpy.detach())
+            surrogate = (surrogate + torch.dot(stats.alpha.detach(), gy)
+                         - torch.sum(lgpy))
         (g,) = torch.autograd.grad(surrogate, flat)
         value_and_grad.last_cg_iters = int(stats.cg_iters)
         value_and_grad.last_rel_residual = float(stats.rel_residual)

@@ -15,6 +15,8 @@ ported.
 `IterativePredictor` is the matrix-free server past the dense wall:
 K(X, X) never exists; every solve is batched CG over the streamed Gram
 matmat (the CUDA kernel csrc/matmat.cu on a GPU, ops/matvec.py).
+
+Both servers take the plain and the warped Gaussian likelihood.
 """
 
 from __future__ import annotations
@@ -31,10 +33,7 @@ from gp_ss_ak_torch.inference.iterative import (
     pivoted_cholesky,
     whitened_solve_info,
 )
-from gp_ss_ak_torch.inference.likelihoods import (
-    LIK_WARPGAUSS,
-    WARPED_NOT_PORTED,
-)
+from gp_ss_ak_torch.inference.likelihoods import WarpedGaussian
 from gp_ss_ak_torch.kernels.distance import highest_precision, pad_to_3d
 from gp_ss_ak_torch.model import GPModel
 from gp_ss_ak_torch.ops.matvec import operator_arrays, streamed_matmat
@@ -53,16 +52,21 @@ class Predictor:
     #: for an 80 GB H100.
     PRECOMPUTE_MAX_N = 16384
 
-    def __init__(self, model: GPModel, X, y,
+    def __init__(self, model: GPModel, X, y, robust: bool = False,
                  precompute_inverse: Optional[bool] = None):
         self.model = model
         flat = model.pack()
         self.dtype, self.device = flat.dtype, flat.device
         self.X = torch.as_tensor(X, dtype=self.dtype, device=self.device)
         self.y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
+        # robust=True adds an escalating diagonal nugget instead of
+        # propagating NaN (utils/psd.py); .nugget is what it added
         self.post = gaussian.factorize(
             model.kernel, model.kernel_params, model.lik_hypers,
-            self.X, self.y, model.likelihood)
+            self.X, self.y, model.likelihood, robust=robust)
+        self.nugget = (self.post.nugget if self.post.nugget is not None
+                       else torch.zeros((), dtype=self.dtype,
+                                        device=self.device))
         n = self.X.shape[0]
         if precompute_inverse is None:
             precompute_inverse = n <= self.PRECOMPUTE_MAX_N
@@ -105,9 +109,9 @@ class Predictor:
 
 class IterativePredictor:
     """Matrix-free posterior server: K(X, X) is never materialized.
-    Port of gp_ss_ak_tpu/serve.py:145-429 for the plain Gaussian
-    likelihood, on the device of the model's parameters, in float32
-    whatever the model's dtype (as the JAX class).
+    Port of gp_ss_ak_tpu/serve.py:145-429, on the device of the model's
+    parameters, in float32 whatever the model's dtype (as the JAX
+    class).
 
       setup  alpha = A^-1 y by whitened batched CG (plain CG on
              P^(-1/2) A P^(-1/2), P the rank-k pivoted-Cholesky
@@ -126,6 +130,14 @@ class IterativePredictor:
     same metric M as the training points (not the combined-mean
     convention of ops/fused.fused_cross_gram); distances are
     translation invariant, so this only affects round-off.
+
+    A WarpedGaussian model runs the same algebra on g(y) (alpha =
+    (K + sn2 I)^-1 g(y), sn2 = exp(2 theta), g's rbf clamp at the raw
+    targets' max) and pushes each batch's latent (mu, var) through g^-1
+    with the dense path's Gauss-Hermite mix
+    (gaussian.warped_predictive_mix). Its predictive mean mixes over
+    the latent sigma, so a warped `mean_only` call still solves for the
+    variance.
     """
 
     #: max right-hand-side columns per variance solve. TPU-era values,
@@ -139,12 +151,10 @@ class IterativePredictor:
     def __init__(self, model: GPModel, X, y, precond_rank=None,
                  cg_tol: float = 1e-4, cg_maxiter: int = 800,
                  chunk: int = 4096):
-        if getattr(model.likelihood, "kind", None) == LIK_WARPGAUSS:
-            raise NotImplementedError(WARPED_NOT_PORTED)
         if not supports_iterative(model):
             raise ValueError(
                 "IterativePredictor supports only Sum([ExpAns, Bias]) "
-                "with a Gaussian likelihood; got "
+                "with a (Warped)Gaussian likelihood; got "
                 f"{model.kernel!r} / {type(model.likelihood).__name__}")
         f32 = torch.float32
         self.model = model
@@ -152,7 +162,17 @@ class IterativePredictor:
         ep, bp = model.kernel_params
         expans = model.kernel.children[0]
         Xd = torch.as_tensor(X, dtype=f32, device=device)
-        yd = torch.as_tensor(y, dtype=f32, device=device)
+        yraw = torch.as_tensor(y, dtype=f32, device=device)
+        lik = model.likelihood
+        lh = model.lik_hypers.to(f32).reshape(-1)
+        self.likelihood, self.lik_hypers = lik, lh
+        self.warped = isinstance(lik, WarpedGaussian)
+        # rbf warp families clamp their centres at max(raw y)
+        self.y_max = torch.max(yraw)
+        if self.warped:
+            yd, _ = lik.effective_target(lh, yraw, self.y_max)
+        else:
+            yd = yraw
         n = Xd.shape[0]
         self.n = n
         self.cg_tol = cg_tol
@@ -170,7 +190,7 @@ class IterativePredictor:
             Xm = (Xp - self._c) @ self._M
         sigma = ep["Sigma"].to(f32)
         bias = bp["Sigma"].to(f32)
-        sn2 = model.likelihood.noise_variance(model.lik_hypers).to(f32)
+        sn2 = lik.noise_variance(lh)
         self.sigma, self.bias, self.sn2 = sigma, bias, sn2
         self.s2 = sigma * sigma
         self._Xm = Xm.contiguous()
@@ -252,13 +272,16 @@ class IterativePredictor:
                  ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Posterior mean and variance (noise included) at Xstar, in
         batches of `batch_size` (the tail padded by repeating its last
-        row, as the JAX server does). `mean_only` skips the variance
-        solves and returns (mu, None). `latent` is the JAX signature's
-        switch for warped models; for a plain Gaussian it changes
-        nothing."""
+        row, as the JAX server does). `mean_only` returns (mu, None):
+        a plain Gaussian then skips the variance solves, a warped model
+        still pays them. `latent=True` returns a warped model's LATENT
+        Gaussian (mu, var), noise included and the warp mix not
+        applied; for a plain Gaussian it changes nothing."""
         Xs = np.asarray(Xstar)
         m = Xs.shape[0]
         mus, vars_ = [], []
+        mix = self.warped and not latent
+        need_var = (not mean_only) or mix
         for start in range(0, m, batch_size):
             chunk = Xs[start:start + batch_size]
             pad = batch_size - chunk.shape[0]
@@ -267,8 +290,14 @@ class IterativePredictor:
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
             Xsm = self._map_queries(chunk)
             take = batch_size - pad
-            mus.append(self._mean(Xsm)[:take].cpu().numpy())
+            mu_b = self._mean(Xsm)
+            var_b = self._var(Xsm) if need_var else None
+            if mix:
+                mu_b, var_b = gaussian.warped_predictive_mix(
+                    self.likelihood, self.lik_hypers, mu_b, var_b,
+                    self.y_max)
+            mus.append(mu_b[:take].cpu().numpy())
             if not mean_only:
-                vars_.append(self._var(Xsm)[:take].cpu().numpy())
+                vars_.append(var_b[:take].cpu().numpy())
         mu = np.concatenate(mus)
         return mu, (None if mean_only else np.concatenate(vars_))

@@ -231,6 +231,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import gp_ss_ak_torch.ops._build, gp_ss_ak_torch.ops.matvec\n"
         "import gp_ss_ak_torch.inference.iterative, gp_ss_ak_torch.optim\n"
         "import gp_ss_ak_torch.entry, gp_ss_ak_torch.utils\n"
+        "import gp_ss_ak_torch.inference.warping\n"
+        "import gp_ss_ak_torch.inference.quadrature\n"
+        "import gp_ss_ak_torch.utils.psd, gp_ss_ak_torch.native.loader\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

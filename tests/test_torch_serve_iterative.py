@@ -10,7 +10,7 @@ Predictor, tests/test_utils_serve.py), and the setup's iteration count
 within 2 of JAX's.
 """
 
-from dataclasses import dataclass, replace
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +21,8 @@ import gp_ss_ak_tpu.model as jm
 import gp_ss_ak_tpu.serve as jserve
 import gp_ss_ak_torch.model as tm
 import gp_ss_ak_torch.serve as tserve
-from gp_ss_ak_torch.inference.likelihoods import LIK_WARPGAUSS
+from gp_ss_ak_tpu.inference import WarpedGaussian as JWarped
+from gp_ss_ak_torch.inference import WarpedGaussian as TWarped
 from gp_ss_ak_torch.ops import matvec, pairwise
 
 CPU = torch.device("cpu")
@@ -125,18 +126,34 @@ def test_rejects_non_flagship():
         tserve.IterativePredictor(model, np.zeros((8, 3)), np.zeros(8))
 
 
-@dataclass(frozen=True)
-class _WarpedStandIn:
-    """A likelihood object of the warped kind: the port cannot build a
-    WarpedGaussian yet, so this stands in for one."""
-
-    n_hypers: int = 4
-    kind: int = LIK_WARPGAUSS
-
-
 def test_warped_is_not_ported():
-    model = tm.default_model(3, device="cpu")
-    model = replace(model, likelihood=_WarpedStandIn(),
-                    lik_hypers=torch.zeros(4, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="warping.py"):
-        tserve.IterativePredictor(model, np.zeros((8, 3)), np.zeros(8))
+    # asserts that the warped server IS ported: a WarpedGaussian model
+    # on skewed positive targets (tests/test_utils_serve.py:227-261)
+    # agrees with JAX's IterativePredictor at its tolerances, and the
+    # warped mean_only mean equals the full call's
+    mj, mt, X, y = make(320)
+    lh = [0.2, 0.5, 0.1, -1.5]
+    mj = replace(mj, likelihood=JWarped("tanh1", 1),
+                 lik_hypers=jnp.asarray(lh, jnp.float32))
+    mt = replace(mt, likelihood=TWarped("tanh1", 1),
+                 lik_hypers=torch.tensor(lh, dtype=torch.float32))
+    y = np.exp(0.8 * y)
+    Xs = np.random.default_rng(11).uniform(-1, 1, (48, 3))
+    kw = dict(precond_rank=64, cg_tol=1e-7, chunk=128)
+    sj = jserve.IterativePredictor(mj, X, y, **kw)
+    st = tserve.IterativePredictor(mt, X, y, **kw)
+    assert st.warped and float(st.y_max) == np.float32(y.max())
+    mu_j, var_j = sj(Xs, batch_size=64)
+    mu_t, var_t = st(Xs, batch_size=64)
+    np.testing.assert_allclose(mu_t, mu_j, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(var_t, var_j, rtol=5e-3, atol=5e-4)
+    it_var = st.last_cg_iters
+    mu_o, none = st(Xs, batch_size=64, mean_only=True)
+    assert none is None and st.last_cg_iters == it_var
+    np.testing.assert_allclose(mu_o, mu_t, rtol=1e-6, atol=1e-7)
+    # latent=True: the unwarped Gaussian on g(y), as JAX's
+    lat_j = sj(Xs, batch_size=64, latent=True)
+    lat_t = st(Xs, batch_size=64, latent=True)
+    for a, b in zip(lat_t, lat_j):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=2e-3)
+    assert not np.allclose(lat_t[0], mu_t, rtol=1e-2)

@@ -131,17 +131,53 @@ def test_train_iterative_engine_on_the_cpu(ore, capsys):
     assert np.all(np.isfinite(_model_values(ore / "mi")))
 
 
+@pytest.mark.parametrize("lf", ["WarpGauss", "WarpGauss:tanh1:2"],
+                         ids=["warp", "warp_family"])
+def test_train_warped_matches_jax_cli(ore, capsys, lf):
+    """`-lf WarpGauss[:family[:m]]` trains the warped likelihood as the
+    JAX CLI does, float64: the same model structure, hyperparameters
+    and printed numbers at RTOL, then `test` serves each CLI's model."""
+    train, test = str(ore / "train.txt"), str(ore / "test.txt")
+    jm, tm = str(ore / "jax_model"), str(ore / "torch_model")
+    args = ["train", "--float64", "-#", "6", "-lf", lf, train]
+    assert jax_main(args + [jm]) == 0
+    jax_train = _numbers(capsys.readouterr().out)
+    assert torch_main(args[:1] + ["--device", "cpu"] + args[1:] + [tm]) == 0
+    torch_train = _numbers(capsys.readouterr().out)
+    np.testing.assert_allclose(torch_train, jax_train, rtol=RTOL)
+    assert _structure(tm) == _structure(jm)
+    np.testing.assert_allclose(_model_values(tm), _model_values(jm),
+                               rtol=RTOL)
+    with open(tm) as f:
+        m = 2 if lf.endswith(":2") else 1
+        assert f"# WarpFamily=tanh1 Triplets={m}\n" in f.read()
+    assert _model_values(tm).shape == (9 + 3 * m + 1,)
+    assert jax_main(["test", "--no-plot", "--float64", test, jm, train,
+                     str(ore / "jp.txt")]) == 0
+    jax_test = _numbers(capsys.readouterr().out)
+    assert torch_main(["test", "--no-plot", "--float64", "--device", "cpu",
+                       test, tm, train, str(ore / "tp.txt")]) == 0
+    np.testing.assert_allclose(_numbers(capsys.readouterr().out), jax_test,
+                               rtol=RTOL)
+    np.testing.assert_allclose(np.loadtxt(ore / "tp.txt"),
+                               np.loadtxt(ore / "jp.txt"), rtol=RTOL,
+                               atol=1e-9)
+    # and the matrix-free engine serves the warped model
+    assert torch_main(["test", "--no-plot", "--engine", "iterative",
+                       "--device", "cpu", test, tm, train,
+                       str(ore / "ti.txt")]) == 0
+    mse, var_y = _numbers(capsys.readouterr().out)
+    assert np.isfinite(mse) and mse < var_y
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["-lf", "WarpGauss"], "inference/warping.py"),
-    (["-lf", "WarpGauss:tanh1:2"], "inference/warping.py"),
     (["--engine", "dist"], "parallel/"),
     (["--engine", "ring"], "parallel/"),
     (["-o", "JIT"], "optim/jax_lbfgs.py"),
     (["--segmented"], "optim/segmented.py"),
     (["-lf", "Student"], "Unknown likelihood function"),
     (["--init-params", "1,2"], "--init-params needs 9 values"),
-], ids=["warp", "warp_family", "dist", "ring", "jit", "segmented",
-        "unknown_lik", "init_params"])
+], ids=["dist", "ring", "jit", "segmented", "unknown_lik", "init_params"])
 def test_train_refusals_exit_1(ore, capsys, extra, msg):
     rc = torch_main(["train", "--device", "cpu", *extra,
                      str(ore / "train.txt"), str(ore / "m")])
