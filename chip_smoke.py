@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
+    python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -58,7 +59,23 @@ Phases, each of which raises on failure (nothing is caught):
      dense training-set predict (the mean alone, in 4096-query chunks),
      profiled, with its peak memory held to 8 N^2 bytes + 3 GiB;
  14. the K2 path: `nlml_iterative(precond_rank=0, mode="stream")` at
-     N = 32768, its residual through K3 and chol mode's exact value.
+     N = 32768, its residual through K3 and chol mode's exact value;
+ 15. K1's batched entry against its batched plain version at ragged B, n
+     and m (square with its diagonal and cross, float64 and float32,
+     per-member scalars), each member bit for bit against a 2-D launch,
+     and its time at B = 256 members of 1024^2 beside its bound;
+ 16. the ensemble: `fit_ensemble` of 256 deposits x 1024 composites
+     (float32, maxiter 30), one batched K1 launch per batched
+     evaluation, every deposit's NLML below its start, four deposits
+     alone through `fit(optimizer="JIT")` against the batch, one
+     evaluation's split under torch.profiler, then `predict_ensemble`
+     at 1024 queries a deposit (MSE < 0.2 var(y) each);
+ 17. `cli.main([... "train" -o JIT -# 5 ...])` at N = 16384, then `test`
+     on the trained model;
+ 18. `sample_hyperposterior` (NUTS, 8 chains, N = 2048, float32, 4
+     warmup + 4 samples, max_depth 8): samples finite and inside the
+     box, one batched K1 launch per objective evaluation, split R-hat
+     and ESS printed; then `predictive_mixture` over every 10th sample.
 Every bound is the largest of four terms (`bound`): bytes, FP32 work
 outside any product, SFU work and the product on the tensor cores at
 float32 accuracy; the line says which term sets it.
@@ -141,6 +158,29 @@ WARP_MSE_MAX = 1.0              # a warped model's: below var(y), as
 # (8 N^2 bytes in float32) and this much more
 DEFAULT_ROUTE_SLACK_GIB = 3.0
 MEAN_TOL = 1e-3                 # Predictor vs CLI means, times std(y)
+# the batched paths: K1's batched entry timed at B members of n x n (the
+# same 2^28 entries as the 16384^2 timing); the ensemble of ENS_B
+# deposits x ENS_N composites (d = 3), fitted for ENS_ITERS iterations,
+# ENS_SINGLE of them also alone through fit(optimizer="JIT"), each
+# predicted at ENS_Q queries; the CLI's `train -o JIT -# JIT_ITERS`; NUTS
+# with NUTS_CHAINS chains on NUTS_N points, its mixture over every
+# NUTS_THIN-th sample
+K1_BATCH_TIME = (256, 1024)
+ENS_B, ENS_N, ENS_Q, ENS_ITERS, ENS_SINGLE = 256, 1024, 1024, 30, 4
+ENS_SINGLE_RTOL = 1e-4          # a deposit alone vs in the batch: fun
+# and in float32, the first evaluation alone vs in the batch (measured
+# 6.4e-6 in the value, 1.7e-6 in the gradient on an H100)
+ENS_FIRST_RTOL = 5e-5
+JIT_ITERS = 5
+# NUTS's sample counts are cut from 100 + 100 to 4 + 4 to keep the
+# batched phases near two minutes: past the first few transitions most
+# trees of some chain reach max_depth (255 leaves, ~32 ms a batched
+# evaluation at 8 x 2048), since the hyperposterior is tight in some
+# directions of z and loose in others (InversewidthR does not enter a
+# d = 3 model) and a short warmup's diagonal mass cannot match both
+# (PERF.md §6)
+NUTS_CHAINS, NUTS_N, NUTS_WARMUP, NUTS_SAMPLES = 8, 2048, 4, 4
+NUTS_THIN = 10
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1589,6 +1629,451 @@ def phase_warped_identity_eval(device, seed: int, train: str, test: str,
     torch.cuda.empty_cache()
 
 
+def phase_k1_batched(device, seed: int, cases=None, time_shape=True):
+    """K1's batched entry against its batched plain version in float64
+    at ragged B, n and m (square with its diagonal and cross), float64
+    and float32, and at the batched paths' own shapes in float32, every
+    member with its own scalars; each member's output bit for bit
+    against a 2-D launch on that member; its time at K1_BATCH_TIME in
+    float32 beside its bound, and that timed output checked the same
+    way. Returns the report."""
+    import torch
+
+    from gp_ss_ak_torch.ops import pairwise
+
+    if cases is None:
+        # ragged shapes, then those of the batched paths: the ensemble's
+        # A and cross-Gram (ENS_B x ENS_N, ENS_Q queries) and the
+        # sampler's A (NUTS_CHAINS x NUTS_N)
+        cases = [(1, 1, None, 3), (3, 37, None, 3), (5, 130, 129, 4),
+                 (2, 1000, 333, 3), (7, 65, None, 5), (300, 17, 9, 3),
+                 (ENS_B, ENS_N, None, 3), (ENS_B, ENS_N, ENS_Q, 3),
+                 (NUTS_CHAINS, NUTS_N, None, 3)]
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device,
+                          dtype=torch.float64)
+
+    worst = 0.0
+    for B, n, m, d in cases:
+        X = 3.0 * rand(B, n, d) - 1.5
+        Y = None if m is None else 3.0 * rand(B, m, d) - 1.5
+        sig, bia = 0.3 + rand(B), 0.05 + 0.3 * rand(B)
+        sn2 = 0.01 + 0.05 * rand(B) if m is None else None
+        scale = (sig * sig + bia)[:, None, None]
+        tag = f"B={B} n={n} m={n if m is None else m} d={d} " \
+              f"{'diag' if m is None else 'cross'}"
+        types = ((torch.float64, TOL_F64), (torch.float32, TOL_F32))
+        if B * n * (n if m is None else m) > 2 ** 24:
+            types = types[1:]   # a batched path's shape, in its type
+        for dtype, tol in types:
+            Xd = X.to(dtype)
+            Yd = None if Y is None else Y.to(dtype)
+            args = [t.to(dtype) for t in (sig, bia)] + [
+                None if sn2 is None else sn2.to(dtype)]
+            K = pairwise.expans_bias_gram(Xd, *args, Yd)
+            ref = pairwise.expans_bias_gram_plain(
+                Xd.double(), sig.to(dtype).double(), bia.to(dtype).double(),
+                None if sn2 is None else sn2.to(dtype).double(),
+                None if Yd is None else Yd.double())
+            err = float(((K.double() - ref).abs() / scale).max())
+            same = all(torch.equal(K[b], pairwise.expans_bias_gram(
+                Xd[b], *(None if a is None else a[b] for a in args),
+                None if Yd is None else Yd[b])) for b in range(B))
+            print(f"K1 batched {tag} {str(dtype).split('.')[-1]}: "
+                  f"|kernel-plain64| / (s2+bias) {err:.3e} (tol {tol:.0e}); "
+                  f"each member's bits equal a 2-D launch: {same}")
+            _check(err <= tol, f"K1 batched disagrees at {tag} {dtype}")
+            _check(same, f"K1 batched: a member's bits differ from a 2-D "
+                   f"launch at {tag} {dtype}")
+            if dtype == torch.float32:
+                worst = max(worst, err * float(scale.max()))
+            del K, ref
+        torch.cuda.empty_cache()
+    report = {"max_abs_err": worst}
+    if not time_shape:
+        return report
+    B, n = K1_BATCH_TIME
+    X = (3.0 * rand(B, n, 3) - 1.5).float()
+    sig, bia, sn2 = ((0.3 + rand(B)).float(), (0.05 + 0.3 * rand(B)).float(),
+                     (0.01 + 0.05 * rand(B)).float())
+    ms = time_ms(lambda: pairwise.expans_bias_gram(X, sig, bia, sn2))
+    plain_ms = time_ms(lambda: pairwise.expans_bias_gram_plain(
+        X, sig, bia, sn2), warmup=2, iters=10)
+    nbytes, fp32, sfu, tensor = gram_work(n, n, 3)
+    b_ms, b_by = bound((B * nbytes, B * fp32, B * sfu, B * tensor),
+                       **card_rates())
+    print(f"K1 batched time B={B} x {n}^2 diag f32: kernel {ms:.4f} ms "
+          f"({B * n * n * 4 / (ms * 1e-3) / 1e9:.0f} GB/s of output), plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms (set by {b_by}); kernel "
+          f"at {b_ms / ms:.3f} of it")
+    # the timed launch's output against the plain version in float64, and
+    # a few members bit for bit against 2-D launches
+    K = pairwise.expans_bias_gram(X, sig, bia, sn2)
+    ref = pairwise.expans_bias_gram_plain(X.double(), sig.double(),
+                                          bia.double(), sn2.double())
+    scale = (sig.double() ** 2 + bia.double())[:, None, None]
+    err = float(((K.double() - ref).abs() / scale).max())
+    del ref
+    members = (0, B // 2, B - 1)
+    same = all(torch.equal(K[b], pairwise.expans_bias_gram(
+        X[b], sig[b], bia[b], sn2[b])) for b in members)
+    print(f"K1 batched timed output: |kernel-plain64| / (s2+bias) "
+          f"{err:.3e} (tol {TOL_F32:.0e}); members {members} equal 2-D "
+          f"launches bit for bit: {same}")
+    _check(err <= TOL_F32, "K1 batched: the timed output disagrees with "
+           "its plain version")
+    _check(same, "K1 batched: a timed member's bits differ from a 2-D launch")
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  max_abs_err=max(worst, err * float(scale.max())))
+    del K
+    torch.cuda.empty_cache()
+    return report
+
+
+def deposits(seed: int, B: int, n: int, q: int):
+    """B synthetic deposits, each an ore body from the seed and its own
+    index, standardized as the CLI does (MODE_SYMMETRIC on its own n
+    training composites): (X (B, n, 3), y (B, n), X* (B, q, 3),
+    y* (B, q)) in standardized units."""
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, apply, prepare
+
+    out = [[], [], [], []]
+    for b in range(B):
+        X, y = ore_body(seed * 100003 + b + 1, n + q)
+        Xs, ys, stats = prepare(X[:n], y[:n], MODE_SYMMETRIC)
+        Xq, yq = apply(stats, X[n:], y[n:])
+        for lst, a in zip(out, (Xs, ys, Xq, yq)):
+            lst.append(a)
+    return tuple(np.stack(a) for a in out)
+
+
+def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
+                   iters=ENS_ITERS, single=ENS_SINGLE):
+    """Counted: `fit_ensemble` of B deposits, then `predict_ensemble`;
+    then, outside the count, the start values, four deposits fitted
+    alone through fit(optimizer="JIT"), one batched evaluation's time
+    and its profiled split. Returns the (2-D, batched) K1 launches of
+    the counted run."""
+    import torch
+
+    from gp_ss_ak_torch.ensemble import fit_ensemble, predict_ensemble
+    from gp_ss_ak_torch.kernels.distance import highest_precision
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.ops import cholesky, maybe_fused_A
+    from gp_ss_ak_torch.optim import fit
+    from gp_ss_ak_torch.optim.api import (batched_nlml_fn,
+                                          batched_value_and_grad,
+                                          unpack_batched)
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    Xb, yb, Xq, yq = deposits(seed, B, n, q)
+    model = default_model(3, dtype=torch.float32, device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    t0 = time.perf_counter()
+    res = fit_ensemble(model, Xb, yb, maxiter=iters)
+    sync()
+    wall = time.perf_counter() - t0
+    fit_k1 = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    t0 = time.perf_counter()
+    mu, var = predict_ensemble(model, res, Xb, yb, Xq)
+    sync()
+    pwall = time.perf_counter() - t0
+    after = counts()
+    fit_launches = (fit_k1[0] - before[0], fit_k1[1] - before[1])
+    pred_launches = (after[0] - fit_k1[0], after[1] - fit_k1[1])
+    print(f"ensemble fit: {B} deposits x {n} composites, d=3, f32, "
+          f"maxiter {iters}: {wall:.3f} s wall, {res.n_evals} batched "
+          f"evaluations ({wall / res.n_evals * 1e3:.3f} ms each on average), "
+          f"iterations {int(res.n_iters.min())}-{int(res.n_iters.max())}, "
+          f"{int(res.converged.sum())} converged; peak device memory "
+          f"{peak:.3f} GiB; K1 launches (2-D, batched) {fit_launches}")
+    if cuda:
+        _check(fit_launches == (0, res.n_evals),
+               f"ensemble fit: expected {res.n_evals} batched K1 launches "
+               f"(one per batched evaluation) and no 2-D one, saw "
+               f"{fit_launches}")
+        _check(pred_launches == (0, 2), f"predict_ensemble: expected 2 "
+               f"batched K1 launches (A, cross), saw {pred_launches}")
+
+    # outside the count: the start, the single fits, the split
+    dtype = torch.float32
+    Xt = torch.as_tensor(Xb, dtype=dtype, device=device)
+    yt = torch.as_tensor(yb, dtype=dtype, device=device)
+    f = batched_nlml_fn(model)
+    x0 = model.pack().detach().expand(B, -1)
+    with torch.no_grad():
+        start = f(x0, Xt, yt)
+    fun = res.fun
+    _check(bool(torch.all(torch.isfinite(fun))), "ensemble: non-finite NLML")
+    _check(bool(torch.all(fun < start)),
+           f"ensemble: {int((fun >= start).sum())} deposits did not end "
+           f"below their start")
+    print(f"ensemble: NLML per deposit {float(start.mean()):.4f} -> "
+          f"{float(fun.mean()):.4f} on average; every deposit below its start")
+    mse = ((mu.cpu().numpy() - yq) ** 2).mean(axis=1)
+    var_y = yq.var(axis=1)
+    ratio = mse / var_y
+    print(f"predict_ensemble: {B} x {q} queries in {pwall:.4f} s "
+          f"({B * q / pwall:.0f} predictions/s); MSE / var(y) per deposit "
+          f"{ratio.min():.4f}-{ratio.max():.4f} (limit {MSE_MAX}); K1 "
+          f"launches (2-D, batched) {pred_launches}")
+    _check(bool(np.all(np.isfinite(mse)) and np.all(ratio < MSE_MAX)),
+           "predict_ensemble: a deposit's MSE is not below 0.2 var(y)")
+    _check(bool(torch.all(var > 0)), "predict_ensemble: variance <= 0")
+    # a deposit alone against the batch. In float32 the two differ by the
+    # round-off of the library calls, which pick other kernels for one
+    # matrix than for a batch. The first evaluation of the timed float32
+    # batch is gated against each deposit alone; the fits after `iters`
+    # iterations, a path that this round-off steers, are gated in float64
+    # (the first `single` deposits in a batch of their own against each
+    # alone) and printed in float32
+    vg = batched_value_and_grad(f, Xt, yt)
+    vB, gB = vg(x0)
+    for b in range(single):
+        v1, g1 = batched_value_and_grad(f, Xt[b:b + 1], yt[b:b + 1])(
+            x0[b:b + 1])
+        dv = float(abs(v1[0] - vB[b]) / max(abs(float(vB[b])), n))
+        dg = float((g1[0] - gB[b]).abs().max() / gB[b].abs().max())
+        print(f"deposit {b}, first evaluation in float32, alone vs in the "
+              f"batch of {B}: value {float(vB[b]):.6f}, |diff| / max(|v|, n) "
+              f"{dv:.2e}; gradient max |diff| / max |g| {dg:.2e} (tol "
+              f"{ENS_FIRST_RTOL:.0e} each)")
+        _check(dv <= ENS_FIRST_RTOL and dg <= ENS_FIRST_RTOL,
+               f"deposit {b}: its first evaluation alone and in the batch "
+               f"of {B} disagree")
+    m64 = default_model(3, dtype=torch.float64, device=device)
+    sub = fit_ensemble(m64, Xb[:single], yb[:single], maxiter=iters)
+    for b in range(single):
+        _, one32 = fit(model, Xb[b], yb[b], optimizer="JIT", iters=iters,
+                       engine="dense")
+        _, one = fit(m64, Xb[b], yb[b], optimizer="JIT", iters=iters,
+                     engine="dense")
+        rel = abs(one.fun / float(sub.fun[b]) - 1.0)
+        rel32 = abs(one32.fun / float(fun[b]) - 1.0)
+        print(f"deposit {b} alone (fit optimizer=JIT): float64 fun "
+              f"{one.fun:.8f} vs {float(sub.fun[b]):.8f} in a batch of "
+              f"{single} (rel {rel:.2e}, tol {ENS_SINGLE_RTOL:.0e}; "
+              f"{one.n_iters} iterations vs {int(sub.n_iters[b])}); float32 "
+              f"fun {one32.fun:.6f} vs {float(fun[b]):.6f} in the batch of "
+              f"{B} (rel {rel32:.2e}; {one32.n_iters} iterations vs "
+              f"{int(res.n_iters[b])})")
+        _check(rel <= ENS_SINGLE_RTOL and one.n_iters == int(sub.n_iters[b]),
+               f"deposit {b}: alone and in the batch disagree")
+    if not cuda:
+        return fit_launches, pred_launches
+    walls = []
+    for _ in range(6):
+        sync()
+        t0 = time.perf_counter()
+        vg(x0)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    med = float(np.median(walls[1:]))
+    kp, lh = unpack_batched(model, x0)
+    with highest_precision():
+        A = maybe_fused_A(model.kernel, kp, lh[0], Xt)
+        potrf_ms = time_ms(lambda: cholesky(A), warmup=1, iters=5)
+    del A
+    labels = {"kernel:gram_kernel": "K1 forward",
+              "QuadLogdet.forward": "potrf + solve",
+              "QuadLogdet.backward": "QW adjoint (trsm + GEMM)",
+              "FusedExpansBiasA.backward": "K1 backward"}
+    _, pw, split, total, top = profile_split(lambda: vg(x0), labels)
+    print(f"ensemble batched evaluation ({B} x {n}, f32): median "
+          f"{med * 1e3:.3f} ms (host clock); batched potrf alone "
+          f"{potrf_ms:.4f} ms ({potrf_ms / (med * 1e3):.3f} of an "
+          f"evaluation); torch.profiler device time: "
+          f"{_split_text(split, labels, pw, total, top)}")
+    torch.cuda.empty_cache()
+    return fit_launches, pred_launches
+
+
+def phase_train_jit(train: str, test: str, workdir: str, counts,
+                    iters=JIT_ITERS, n_train=N_TRAIN):
+    """Counted: `train -o JIT -# iters` through the CLI entry point on
+    the dense case, then `test` on the trained model. Returns the K1
+    launches (2-D, batched)."""
+    import torch
+
+    from gp_ss_ak_torch import cli
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, prepare, read_data
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.optim import batched_lbfgs, flat_nlml_fn
+
+    model_path = os.path.join(workdir, "trained_jit")
+    seen = []
+    minimize = batched_lbfgs.minimize
+
+    def spy(*a, **k):       # the fit's own evaluation count
+        out = minimize(*a, **k)
+        seen.append(out.n_evals)
+        return out
+
+    before = counts()
+    out = io.StringIO()
+    batched_lbfgs.minimize = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-v", "1", "train", "-o", "JIT", "-#", str(iters),
+                           train, model_path])
+    finally:
+        batched_lbfgs.minimize = minimize
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print("cli train -o JIT:", " | ".join(text.strip().splitlines()),
+          f"(rc {rc}, {wall:.3f} s wall, file IO included)")
+    _check(rc == 0, f"cli train -o JIT returned {rc}")
+    trained = counts()
+    phase_main(train, test, model_path)
+    after = counts()
+    m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\S+) evals, "
+                  r"stop: (\S+)\)", text)
+    _check(m is not None and len(seen) == 1, "cli train -o JIT printed no "
+           "-logL line or ran no batched L-BFGS")
+    last = float(m.group(2))
+    n_evals = seen[0]
+    fit_k1 = (trained[0] - before[0], trained[1] - before[1])
+    test_k1 = (after[0] - trained[0], after[1] - trained[1])
+    # the start, outside the count
+    X, y = read_data(train)
+    Xs, ys, _ = prepare(X, y, MODE_SYMMETRIC)
+    start_model = default_model(3, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        first = float(flat_nlml_fn(start_model)(
+            start_model.pack(), *(torch.as_tensor(a, dtype=torch.float32,
+                                                  device="cuda")
+                                  for a in (Xs, ys))))
+    print(f"train -o JIT at N={n_train}: -logL {first} -> {last}, "
+          f"{m.group(3)} iterations, {n_evals} batched evaluations (B = 1), "
+          f"stop reason {m.group(5)}; K1 launches (2-D, batched): fit and "
+          f"training-set predict {fit_k1}, test {test_k1}")
+    _check(np.isfinite(first) and np.isfinite(last) and last < first,
+           f"train -o JIT: -logL did not decrease: {first} -> {last}")
+    want = (predict_k1(n_train), n_evals)
+    _check(fit_k1 == want and test_k1 == (2, 0),
+           f"train -o JIT + test: expected {want} K1 launches (2-D for the "
+           f"training-set predict, batched one per evaluation) and (2, 0) "
+           f"for test; saw {fit_k1} and {test_k1}")
+    return fit_k1[0] + test_k1[0], fit_k1[1]
+
+
+def phase_nuts(device, seed: int, counts, chains=NUTS_CHAINS, n=NUTS_N,
+               warmup=NUTS_WARMUP, samples=NUTS_SAMPLES, thin=NUTS_THIN):
+    """Counted: `sample_hyperposterior` (NUTS) on n points of the ore
+    body, float32, then `predictive_mixture` over every thin-th sample.
+    Returns the K1 launches (2-D, batched)."""
+    import torch
+
+    from gp_ss_ak_torch.bayes import (predictive_mixture,
+                                      sample_hyperposterior, summarize)
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, apply, prepare
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.optim import DEFAULT_LOWER, DEFAULT_UPPER
+    from gp_ss_ak_torch.optim.api import batched_nlml_fn
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    X, y = ore_body(seed + 7, n + 512)
+    Xs, ys, stats_ = prepare(X[:n], y[:n], MODE_SYMMETRIC)
+    Xq, yq = apply(stats_, X[n:], y[n:])
+    model = default_model(3, dtype=torch.float32, device=device)
+    st = {}
+    before = counts()
+    t0 = time.perf_counter()
+    theta, aps = sample_hyperposterior(
+        model, Xs, ys, seed, n_samples=samples, n_warmup=warmup,
+        n_chains=chains, sampler="nuts", stats=st)
+    sync()
+    wall = time.perf_counter() - t0
+    sampled = counts()
+    t0 = time.perf_counter()
+    mu, var = predictive_mixture(model, Xs, ys, Xq, theta, thin=thin)
+    sync()
+    mwall = time.perf_counter() - t0
+    after = counts()
+    samp_k1 = (sampled[0] - before[0], sampled[1] - before[1])
+    mix_k1 = (after[0] - sampled[0], after[1] - sampled[1])
+    th = theta.cpu().double().numpy()
+    leaves = st["leaves"].cpu().numpy()
+    diag = summarize(th)
+    print(f"NUTS: {chains} chains on N={n} f32, {warmup} warmup + {samples} "
+          f"samples, max_depth 8: {wall:.3f} s wall, {st['evals']} "
+          f"batched evaluations ({wall / st['evals'] * 1e3:.3f} ms each on "
+          f"average), leapfrog leaves per transition mean "
+          f"{leaves.mean():.2f} (warmup {leaves[:, :warmup].mean():.2f}, "
+          f"sampling {leaves[:, warmup:].mean():.2f}, max "
+          f"{leaves.max():.0f}), mean accept statistic "
+          f"{float(aps.mean()):.4f}; K1 launches (2-D, batched) {samp_k1}")
+    print(f"NUTS diagnostics (printed, not gated): split R-hat "
+          f"{np.array2string(diag['rhat'], precision=3)}, bulk ESS "
+          f"{np.array2string(diag['ess'], precision=1)}, tail ESS "
+          f"{np.array2string(diag['ess_tail'], precision=1)}")
+    _check(bool(np.all(np.isfinite(th))), "NUTS: a sample is not finite")
+    _check(bool(th.min() >= DEFAULT_LOWER * (1 - 1e-6)
+                and th.max() <= DEFAULT_UPPER * (1 + 1e-6)),
+           f"NUTS: a sample leaves the box: {th.min()}, {th.max()}")
+    if cuda:
+        _check(samp_k1 == (0, st["evals"]),
+               f"NUTS: expected {st['evals']} batched K1 launches (one per "
+               f"objective evaluation) and no 2-D one, saw {samp_k1}")
+    # outside the count: the float32 objective's error against float64
+    # at the start and at each chain's last sample
+    f = batched_nlml_fn(model)
+    with torch.no_grad():
+        ends = torch.cat([model.pack()[None], theta[:, -1]])
+        val = {dt: f(ends.to(dt), *(torch.as_tensor(
+            a, dtype=dt, device=device).expand(ends.shape[0], *a.shape)
+            for a in (Xs, ys))).double().cpu().numpy()
+            for dt in (torch.float32, torch.float64)}
+    err = np.abs(val[torch.float32] - val[torch.float64])
+    print(f"NUTS target, float32 NLML against float64: at the start "
+          f"{val[torch.float64][0]:.4f} (error {err[0]:.4f}); at the chains' "
+          f"last samples {np.array2string(val[torch.float64][1:], precision=1)}"
+          f" (errors {np.array2string(err[1:], precision=4)})")
+    mu_h, var_h = mu.cpu().numpy(), var.cpu().numpy()
+    mse = float(np.mean((mu_h - yq) ** 2))
+    n_mix = th.reshape(-1, th.shape[-1])[::thin].shape[0]
+    print(f"predictive_mixture over {n_mix} samples at {Xq.shape[0]} "
+          f"queries: {mwall:.3f} s, MSE "
+          f"{mse:.5f} = {mse / yq.var():.4f} var(y); K1 launches (2-D, "
+          f"batched) {mix_k1}")
+    _check(bool(np.all(np.isfinite(mu_h)) and np.all(np.isfinite(var_h))
+                and np.all(var_h >= 0)),
+           "predictive_mixture: non-finite mean or variance < 0")
+    return samp_k1[0] + mix_k1[0], samp_k1[1] + mix_k1[1]
+
+
+def run_batched(device, seed: int, zero, counts2, train: str, test: str,
+                workdir: str):
+    """The batched paths (phases 15-18): K1's batched entry, then the
+    counted ensemble, `train -o JIT` and NUTS runs. Returns the K1
+    launches of the counted runs and the batched K1 report."""
+    import torch
+
+    t0 = time.perf_counter()
+    report = phase_k1_batched(device, seed)
+    k1 = 0
+    zero()
+    fit_k1, pred_k1 = phase_ensemble(device, seed, counts2)
+    k1 += sum(fit_k1) + sum(pred_k1)
+    torch.cuda.empty_cache()
+    zero()
+    k1 += sum(phase_train_jit(train, test, workdir, counts2))
+    torch.cuda.empty_cache()
+    zero()
+    k1 += sum(phase_nuts(device, seed, counts2))
+    torch.cuda.empty_cache()
+    print(f"batched phases done in {time.perf_counter() - t0:.1f} s")
+    return k1, report
+
+
 def _kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1676,9 +2161,10 @@ def run_train_default(itrain: str, zero, counts):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3", "warped"),
+    ap.add_argument("--only", choices=("k3", "warped", "batched"),
                     help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
-                         "10b, 11b and 13. Neither prints a result")
+                         "10b, 11b and 13; batched: phases 1, 2 and 15-18. "
+                         "None prints a result")
     args = ap.parse_args(argv)
 
     import torch
@@ -1699,10 +2185,23 @@ def main(argv=None) -> int:
         return 0
 
     def zero():
-        pairwise.launches = matvec.launches = matvec.matvec_launches = 0
+        pairwise.launches = pairwise.batched_launches = 0
+        matvec.launches = matvec.matvec_launches = 0
 
     def counts():
-        return pairwise.launches, matvec.matvec_launches, matvec.launches
+        return (pairwise.launches + pairwise.batched_launches,
+                matvec.matvec_launches, matvec.launches)
+
+    def counts_k1():
+        """K1's launches on one point set and on batches."""
+        return pairwise.launches, pairwise.batched_launches
+
+    if args.only == "batched":
+        train, test, _ = write_case(WORK, args.seed, N_TRAIN, N_TEST)
+        run_batched(device, args.seed, zero, counts_k1, train, test, WORK)
+        print(f"batched phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     if args.only == "warped":
         _, wmodel = run_warped_dense(device, args.seed, zero, counts)
@@ -1803,6 +2302,13 @@ def main(argv=None) -> int:
     zero()
     k2_launches = phase_k2_path(device, args.seed, itrain, itest, imodel)
     _check(k2_launches > 0, "the K2 path launched no K2")
+
+    # counted runs 7-9, the batched paths: the ensemble, train -o JIT and
+    # NUTS, after K1's batched entry against its plain version
+    k1_b, k1_batched = run_batched(device, args.seed, zero, counts_k1, train,
+                                   test, WORK)
+    k1_launches += k1_b
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_batched["max_abs_err"])
 
     print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

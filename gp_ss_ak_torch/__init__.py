@@ -13,9 +13,13 @@ gradients, the jitter-retry factorization, the host optimizers and
 `optim.fit`, the
 matrix-free engine (inference/iterative.py: CG, SLQ, the Hutchinson
 gradient), the dense `serve.Predictor`, the matrix-free
-`serve.IterativePredictor`, and the CLI's `train` and `test`. On a GPU
-the flagship Sum([ExpAns, Bias]) Gram runs through the hand-written CUDA
-kernel csrc/gram.cu (ops/pairwise.py), and the matrix-free operator
+`serve.IterativePredictor`, and the CLI's `train` and `test`; the
+batched paths: the batched L-BFGS behind `optim.fit(optimizer="JIT")`
+and `train -o JIT` (optim/batched_lbfgs.py), multi-deposit ensembles
+(ensemble/), and HMC/NUTS hyperposteriors (bayes/). On a GPU the
+flagship Sum([ExpAns, Bias]) Gram runs through the hand-written CUDA
+kernel csrc/gram.cu (ops/pairwise.py; one launch for a batch of
+problems), and the matrix-free operator
 through csrc/matmat.cu and csrc/matvec.cu (ops/matvec.py). Entry points
 run on the card unless the caller asks for the CPU.
 """

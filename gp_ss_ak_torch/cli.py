@@ -36,9 +36,12 @@ at verbose 0, labeled at verbose > 0 — gp_ss_ak.cpp:312-325, 417-430)
 and writes the reference prediction file (gp_ss_ak.cpp:434-481) plus,
 unless --no-plot, the Observed-vs-Estimated plot.
 
+`train -o JIT` fits with the batched L-BFGS on one problem
+(optim/batched_lbfgs.py, the counterpart of the JAX package's whole-fit
+device optimizer optim/jax_lbfgs.py).
+
 Not ported (exit 1, naming the module): the mesh engines
-(`--engine dist|ring`, parallel/), the whole-fit device optimizer
-(`-o JIT`, optim/jax_lbfgs.py) and the segmented evaluator
+(`--engine dist|ring`, parallel/) and the segmented evaluator
 (`--segmented`, optim/segmented.py).
 """
 
@@ -85,7 +88,8 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="kernel name (repeatable): ExpAns (default), "
                     "RBF, Exp, Bias, White")
     tr.add_argument("-o", "--optimiser", default="LBFGS",
-                    help="LBFGS (default) | BFGS | SCG")
+                    help="LBFGS (default) | BFGS | SCG | JIT (the "
+                    "batched L-BFGS on one problem)")
     tr.add_argument("-#", "--iterations", type=int, default=100,
                     dest="iters")
     tr.add_argument("-kn", "--Knoise", type=int, default=1,
@@ -216,9 +220,6 @@ def cmd_train(args) -> int:
     if args.engine in ("dist", "ring"):
         return _not_ported(f"--engine {args.engine} (the mesh engines, "
                            "parallel/)")
-    if args.optimiser.upper() in ("JIT", "LBFGS-JIT", "DEVICE"):
-        return _not_ported(f"-o {args.optimiser} (the whole-fit device "
-                           "optimizer, optim/jax_lbfgs.py)")
     if args.segmented:
         return _not_ported("--segmented (optim/segmented.py)")
     device = _device(args)

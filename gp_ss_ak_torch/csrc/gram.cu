@@ -31,6 +31,11 @@
 //  * Ragged edges are masked in the kernel: no padded copies of X and
 //    no slice of the output afterwards.
 //  * Templated on float (the serving type) and double (golden checks).
+//  * A leading batch axis (the JAX package's jax.vmap over ensemble
+//    members and sampler chains): blockIdx.z picks the member, whose
+//    points, three scalars and output sit at fixed strides. The 2-D
+//    entry is the one-member case of the same kernel body, so a member
+//    of a batched launch gets the same bits as a 2-D launch on it.
 
 #include <cuda_runtime.h>
 
@@ -68,6 +73,11 @@ gram_kernel(const T* __restrict__ xi, const T* __restrict__ xj,
     const int tid = ty * TX + tx;
     const int row0 = blockIdx.y * BM;
     const int col0 = blockIdx.x * BN;
+    // this block's member of the batch
+    xi += (size_t)blockIdx.z * n * d;
+    xj += (size_t)blockIdx.z * m * d;
+    scal += (size_t)blockIdx.z * 3;
+    out += (size_t)blockIdx.z * n * m;
 
     T acc[RM][RN];
 #pragma unroll
@@ -128,19 +138,31 @@ gram_kernel(const T* __restrict__ xi, const T* __restrict__ xj,
 
 template <typename T>
 int launch(const void* xi, const void* xj, const void* scal, void* out,
-           int n, int m, int d, int with_diag, int device, void* stream)
+           int batch, int n, int m, int d, int with_diag, int device,
+           void* stream)
 {
-    if (n <= 0 || m <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-    const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-    if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+    if (batch <= 0 || n <= 0 || m <= 0 || d <= 0)
+        return (int)cudaErrorInvalidValue;
+    const unsigned gy = (n + BM - 1) / BM;
+    if (gy > 65535u) return (int)cudaErrorInvalidValue;
     // this library links its own CUDA runtime, whose current device is
     // separate from the caller's: select the tensors' device explicitly
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    gram_kernel<T><<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>(
-        (const T*)xi, (const T*)xj, (const T*)scal, (T*)out,
-        n, m, d, with_diag);
-    return (int)cudaGetLastError();
+    // gridDim.z is at most 65535: larger batches take several launches
+    constexpr int ZMAX = 65535;
+    for (int b0 = 0; b0 < batch; b0 += ZMAX) {
+        const int nb = batch - b0 < ZMAX ? batch - b0 : ZMAX;
+        const dim3 grid((m + BN - 1) / BN, gy, nb);
+        gram_kernel<T><<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>(
+            (const T*)xi + (size_t)b0 * n * d,
+            (const T*)xj + (size_t)b0 * m * d,
+            (const T*)scal + (size_t)b0 * 3,
+            (T*)out + (size_t)b0 * n * m, n, m, d, with_diag);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }
 
 }  // namespace
@@ -150,15 +172,33 @@ extern "C" {
 int gp_gram_f32(const void* xi, const void* xj, const void* scal, void* out,
                 int n, int m, int d, int with_diag, int device, void* stream)
 {
-    return launch<float>(xi, xj, scal, out, n, m, d, with_diag, device,
+    return launch<float>(xi, xj, scal, out, 1, n, m, d, with_diag, device,
                          stream);
 }
 
 int gp_gram_f64(const void* xi, const void* xj, const void* scal, void* out,
                 int n, int m, int d, int with_diag, int device, void* stream)
 {
-    return launch<double>(xi, xj, scal, out, n, m, d, with_diag, device,
+    return launch<double>(xi, xj, scal, out, 1, n, m, d, with_diag, device,
                           stream);
+}
+
+// xi (batch, n, d), xj (batch, m, d), scal (batch, 3), out (batch, n, m),
+// all contiguous; with_diag applies to every member
+int gp_gram_batched_f32(const void* xi, const void* xj, const void* scal,
+                        void* out, int batch, int n, int m, int d,
+                        int with_diag, int device, void* stream)
+{
+    return launch<float>(xi, xj, scal, out, batch, n, m, d, with_diag,
+                         device, stream);
+}
+
+int gp_gram_batched_f64(const void* xi, const void* xj, const void* scal,
+                        void* out, int batch, int n, int m, int d,
+                        int with_diag, int device, void* stream)
+{
+    return launch<double>(xi, xj, scal, out, batch, n, m, d, with_diag,
+                          device, stream);
 }
 
 const char* gp_cuda_error_string(int code)

@@ -15,10 +15,11 @@ Operator modes (`choose_mode`): "chol" materializes A with K1 and
 factors it exactly; "gemm" holds A in float32 and runs CG/SLQ as GEMMs;
 "stream" never builds A. Everything runs in float32, as in the JAX
 package. The JAX package's opt-in "gemm_bf16" (A stored in bfloat16) is
-not ported (ROADMAP §1 item 10). The stages of an evaluation (pivoted
-Cholesky, whitened solve, SLQ, contraction, materialized factor) carry
-profiler ranges named "iterative.<function>", so a torch.profiler trace
-of the real call splits its device time by stage.
+not ported (ROADMAP §1, the gemm_bf16 operator mode). The stages of an
+evaluation (pivoted Cholesky, whitened solve, SLQ, contraction,
+materialized factor) carry profiler ranges named
+"iterative.<function>", so a torch.profiler trace of the real call
+splits its device time by stage.
 
 What differs from JAX, and why:
   * `lax.while_loop`, `fori_loop` and `scan` become Python loops. A CG
@@ -577,7 +578,7 @@ _REFERENCE_HBM_BYTES = 16e9
 
 BF16_NOT_PORTED = ("mode 'gemm_bf16' (the JAX package's MaterializedOperator "
                    "with A stored in bfloat16) is not ported to "
-                   "gp_ss_ak_torch: ROADMAP item 10")
+                   "gp_ss_ak_torch (gp_ss_ak_tpu/inference/iterative.py)")
 
 
 @functools.lru_cache(maxsize=None)

@@ -63,13 +63,14 @@ def gram_sqdist(A1: torch.Tensor, A2: torch.Tensor,
     reduced precision (TF32, bf16) loses ~1e-2 absolute here, enough to
     make the Gram matrix indefinite and every downstream Cholesky NaN.
     With ``same=True`` (A1 is A2) the diagonal is set to exactly zero.
+    Leading batch axes, (B, n, d) and (B, m, d), give (B, n, m).
     """
     s1 = torch.sum(A1 * A1, dim=-1, keepdim=True)  # (n, 1)
     s2 = torch.sum(A2 * A2, dim=-1, keepdim=True)  # (m, 1)
-    cross = A1 @ A2.T
-    d2 = torch.clamp_min(s1 + s2.T - 2.0 * cross, 0.0)
+    cross = A1 @ A2.mT
+    d2 = torch.clamp_min(s1 + s2.mT - 2.0 * cross, 0.0)
     if same:
-        d2.fill_diagonal_(0.0)
+        d2.diagonal(dim1=-2, dim2=-1).zero_()
     return d2
 
 

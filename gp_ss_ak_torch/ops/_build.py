@@ -60,6 +60,11 @@ def _declare(lib) -> None:
         # xi, xj, scal, out, n, m, d, with_diag, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    for name in ("gp_gram_batched_f32", "gp_gram_batched_f64"):
+        fn = getattr(lib, name)
+        # xi, xj, scal, out, batch, n, m, d, with_diag, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        fn.restype = i32
     # x, v, scal, y, n, b, d, device, stream
     lib.gp_matmat_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                   ptr]

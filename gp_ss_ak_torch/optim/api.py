@@ -10,10 +10,15 @@ gp_ss_ak.cpp:286-293). The objective runs on the device and in the
 dtype of the model's parameters; one host read per evaluation brings
 back the value and the gradient.
 
-Not ported (each raises, naming its ROADMAP item): the whole-fit device
-optimizer `-o JIT` (optim/jax_lbfgs.py, item 5), mid-fit checkpoints
-(utils/checkpoint.py, item 8) and the segmented evaluator
-(optim/segmented.py, item 9).
+`optimizer="JIT"` (also "LBFGS-JIT", "DEVICE"; the CLI's `-o JIT`) runs
+the batched L-BFGS of optim/batched_lbfgs.py on one problem: the JAX
+package's whole-fit device optimizer (optim/jax_lbfgs.py), here a host
+loop of batched evaluations. `batched_nlml_fn` is the objective of B
+independent problems at once (the multi-deposit ensembles, the
+sampler's chains).
+
+Not ported (each raises, naming the JAX module): mid-fit checkpoints
+(utils/checkpoint.py) and the segmented evaluator (optim/segmented.py).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from gp_ss_ak_torch.inference import gaussian
 from gp_ss_ak_torch.model import GPModel
+from gp_ss_ak_torch.optim import batched_lbfgs
 from gp_ss_ak_torch.optim.bfgs import DenseBFGS
 from gp_ss_ak_torch.optim.iterative_fit import (
     DENSE_MAX_N,
@@ -41,9 +47,9 @@ from gp_ss_ak_torch.optim.lbfgsb import (
 )
 from gp_ss_ak_torch.optim.scg import SCG
 
-JIT_NOT_PORTED = ("the whole-fit device optimizer (-o JIT, "
-                  "optim/jax_lbfgs.py) is not ported to gp_ss_ak_torch "
-                  "yet: ROADMAP item 5")
+#: the optimizer names of the batched L-BFGS (gp_ss_ak_tpu/optim/api.py:
+#: 240-276, the JAX package's whole-fit device optimizer)
+DEVICE_LOOP = ("JIT", "LBFGS-JIT", "DEVICE")
 
 
 def flat_nlml_fn(model: GPModel, jitter: float = 0.0,
@@ -63,6 +69,69 @@ def flat_nlml_fn(model: GPModel, jitter: float = 0.0,
                              grad_mode=grad_mode)
 
     return f
+
+
+def unpack_batched(model: GPModel, flats: torch.Tensor):
+    """(kernel parameters with (B,) leaves, lik_hypers (n_lik, B)) of
+    (B, p) flat vectors: the batched layout of inference/gaussian.py."""
+    nk = model.kernel.n_params
+    nl = model.lik_hypers.numel()
+    return model.kernel.unpack(flats[:, :nk].T), flats[:, nk : nk + nl].T
+
+
+def batched_nlml_fn(model: GPModel, jitter: float = 0.0):
+    """f(flats (B, p), X (B, n, d), y (B, n)) -> (B,) NLML of B
+    independent problems, differentiable in the flats: the JAX
+    package's `jax.vmap(flat_nlml_fn(model))`.
+
+    The flagship model with the plain Gaussian likelihood evaluates all
+    members at once (one batched K1 launch on the card, batched potrf
+    and QW adjoint); any other model loops over the members
+    (inference/gaussian.py)."""
+    kernel = model.kernel
+    likelihood = model.likelihood
+
+    def f(flats, X, y):
+        kp, lh = unpack_batched(model, flats)
+        return gaussian.nlml(kernel, kp, lh, X, y, likelihood, jitter,
+                             grad_mode="qw")
+
+    return f
+
+
+def batched_value_and_grad(f, X: torch.Tensor, y: torch.Tensor):
+    """vg(flats (B, p)) -> (values (B,), gradients (B, p)) of a batched
+    objective `f` on fixed data, detached; a member's NaN stays in its
+    own value and gradient."""
+
+    def vg(flats: torch.Tensor):
+        with torch.enable_grad():
+            x = flats.detach().requires_grad_(True)
+            val = f(x, X, y)
+            (grad,) = torch.autograd.grad(val.sum(), x)
+        return val.detach(), grad
+
+    return vg
+
+
+def minimize_batched(model: GPModel, X, y, maxiter: int,
+                     lower=None, upper=None, jitter: float = 0.0):
+    """The batched L-BFGS on B independent problems, X (B, n, d) and
+    y (B, n), each from the model's hyperparameters, on the model's
+    device and dtype, in the box [lower, upper] ((p,), the default box
+    when None). Returns batched_lbfgs.minimize's result."""
+    flat0 = model.pack().detach()
+
+    def as_(a):
+        return torch.as_tensor(a, dtype=flat0.dtype, device=flat0.device)
+
+    X, y = as_(X), as_(y)
+    p = flat0.shape[0]
+    lb = as_(np.full(p, DEFAULT_LOWER) if lower is None else lower)
+    ub = as_(np.full(p, DEFAULT_UPPER) if upper is None else upper)
+    vg = batched_value_and_grad(batched_nlml_fn(model, jitter), X, y)
+    return batched_lbfgs.minimize(vg, flat0.expand(X.shape[0], p), lb, ub,
+                                  maxiter=maxiter)
 
 
 def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0,
@@ -165,7 +234,7 @@ def fit(
     if checkpoint_path:
         raise NotImplementedError(
             "fit(checkpoint_path=...) is not ported to gp_ss_ak_torch yet "
-            "(utils/checkpoint.py): ROADMAP item 8")
+            "(utils/checkpoint.py)")
     device = model.pack().device
     t_ready = t_enter
     if timing is not None:
@@ -183,7 +252,7 @@ def fit(
     if opts.pop("segmented", False):
         raise NotImplementedError(
             "the segmented evaluator (optim/segmented.py) is not ported "
-            "to gp_ss_ak_torch: ROADMAP item 9")
+            "to gp_ss_ak_torch")
     n_data = int(np.shape(X)[0])
     eng = resolve_engine(engine, n_data, model)
     if (engine.lower() == "auto" and n_data > DENSE_MAX_N
@@ -195,6 +264,13 @@ def fit(
             "(no CUDA device or unsupported model); expect large "
             "memory cost — pass engine='iterative' to force the "
             "matrix-free route", stacklevel=2)
+    name = optimizer.upper()
+    if name in DEVICE_LOOP and eng == "iterative":
+        # the matrix-free objective is driven by the host L-BFGS-B, as
+        # in the JAX package
+        name = "LBFGS"
+    if name in DEVICE_LOOP:
+        return _fit_device_loop(model, X, y, lb, ub, iters, jitter, timing)
     if eng == "iterative":
         opts.setdefault("jitter", jitter)
         vgrad = make_iterative_value_and_grad(model, X, y, **opts)
@@ -211,14 +287,7 @@ def fit(
         if eng == "iterative":
             timing["cg"] = cg
 
-    name = optimizer.upper()
     oo = dict(opt_opts or {})
-    if name in ("JIT", "LBFGS-JIT", "DEVICE"):
-        if eng != "iterative":
-            raise NotImplementedError(JIT_NOT_PORTED)
-        # the matrix-free objective is driven by the host L-BFGS-B, as
-        # in the JAX package
-        name = "LBFGS"
     if name in ("LBFGS", "LBFGSB", "L-BFGS-B"):
         opt = LBFGSB(maxiter=iters, verbose=verbose, **oo)
     elif name == "BFGS":
@@ -238,9 +307,36 @@ def fit(
         timing["eval_s_sum"] = float(np.sum(walls))
         timing["eval_s_first"] = float(walls[0])
         timing["eval_s_steady_median"] = float(np.median(steady))
+    return _fitted(model, res, X), res
+
+
+def _fitted(model: GPModel, res: OptResult, X) -> GPModel:
     flat0 = model.pack()
     fitted = model.unpack(torch.as_tensor(res.x, dtype=flat0.dtype,
                                           device=flat0.device))
-    fitted = replace(fitted, num_data=n_data,
-                     input_dim=int(np.shape(X)[1]))
-    return fitted, res
+    return replace(fitted, num_data=int(np.shape(X)[0]),
+                   input_dim=int(np.shape(X)[1]))
+
+
+def _fit_device_loop(model: GPModel, X, y, lb, ub, iters: int,
+                     jitter: float, timing: Optional[dict]):
+    """`fit` with the batched L-BFGS on one problem (B = 1), as the JAX
+    package's fit runs jax_lbfgs.minimize: no per-evaluation record (the
+    result's n_evals is -1), `timing["total_wall_s"]` for the whole fit,
+    and the stop reason "device_loop_converged" or "maxiter"."""
+    flat0 = model.pack()
+    dtype, device = flat0.dtype, flat0.device
+    Xd = torch.as_tensor(X, dtype=dtype, device=device)[None]
+    yd = torch.as_tensor(y, dtype=dtype, device=device)[None]
+    t0 = time.perf_counter()
+    out = minimize_batched(model, Xd, yd, iters, lb, ub, jitter)
+    x = out.x[0].cpu().numpy().astype(np.float64)
+    fun = float(out.fun[0])
+    converged = bool(out.converged[0])
+    if timing is not None:
+        timing["total_wall_s"] = time.perf_counter() - t0
+        timing["note"] = ("device-loop optimizer: per-evaluation timing "
+                          "not recorded; total_wall_s is the whole fit")
+    res = OptResult(x, fun, int(out.n_iters[0]), -1, converged, [fun],
+                    "device_loop_converged" if converged else "maxiter")
+    return _fitted(model, res, X), res

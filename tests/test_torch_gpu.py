@@ -21,6 +21,11 @@ it must reject there). The card tests add 4 float32 ulps of the output,
 which dominate at tiny n: at n = 1 the output is (s2 + bias + sn2) * v,
 and its float32 roundings alone reach ~2 ulps. K2 (one vector) is held
 to K3's gate; against K3 at B = 1 (another summation order) to twice it.
+K1's batched entry (one launch for B members, each with its own
+scalars) is held to the same tolerances per member, and each member's
+output must equal a 2-D launch on that member bit for bit: both run the
+same kernel body. The batched objective (optim.api.batched_nlml_fn)
+runs in float64 on the card and on the CPU, a failed member included.
 The autograd Function and a 3-iteration dense fit run in float64 on the
 card and on the CPU: the forward Grams differ by the kernel's direct
 differences against the plain version's expansion (1e-10 of the scale),
@@ -376,3 +381,111 @@ def test_dense_fit_on_cuda_matches_cpu(cuda):
         (rp.stop_reason, rp.n_iters, rp.n_evals)
     np.testing.assert_allclose(xc, xp, rtol=1e-8)
     assert rc.fun == pytest.approx(rp.fun, rel=1e-10)
+
+
+def _batch(B, n, m, d, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device,
+                          dtype=torch.float64)
+
+    X = 3.0 * rand(B, n, d) - 1.5
+    Y = None if m is None else 3.0 * rand(B, m, d) - 1.5
+    sn2 = 0.01 + 0.05 * rand(B) if m is None else None
+    return X, Y, 0.3 + rand(B), 0.05 + 0.3 * rand(B), sn2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("B,n,m,d", [(1, 1, None, 3), (3, 37, None, 3),
+                                     (4, 130, 129, 5), (2, 300, None, 4),
+                                     (9, 65, 17, 3)])
+def test_batched_kernel_matches_plain_and_2d_launches(cuda, B, n, m, d,
+                                                      dtype):
+    # one batched launch; each member against the plain version in
+    # float64 (the 2-D kernel's tolerances) and bit for bit against a
+    # 2-D launch on that member
+    X, Y, s, b, sn2 = _batch(B, n, m, d, cuda, seed=B + n)
+    args = [t.to(dtype) for t in (s, b)] + [
+        None if sn2 is None else sn2.to(dtype)]
+    Xd = X.to(dtype)
+    Yd = None if Y is None else Y.to(dtype)
+    before = (pairwise.launches, pairwise.batched_launches)
+    K = pairwise.expans_bias_gram(Xd, *args, Yd)
+    torch.cuda.synchronize()
+    assert (pairwise.launches, pairwise.batched_launches) == \
+        (before[0], before[1] + 1)
+    assert K.dtype == dtype and tuple(K.shape) == (B, n, n if m is None
+                                                   else m)
+    ref = pairwise.expans_bias_gram_plain(
+        Xd.double(), *(None if a is None else a.double() for a in args),
+        None if Yd is None else Yd.double())
+    scale = (args[0].double() ** 2 + args[1].double())[:, None, None]
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    assert ((K.double() - ref).abs() / scale).max().item() <= tol
+    for i in range(B):
+        Ki = pairwise.expans_bias_gram(
+            Xd[i], *(None if a is None else a[i] for a in args),
+            None if Yd is None else Yd[i])
+        assert torch.equal(K[i], Ki)
+
+
+def test_batched_kernel_past_the_grid_z_limit(cuda):
+    # gridDim.z is at most 65535: a larger batch takes several launches
+    # of the kernel inside one call of the wrapper
+    B = 65535 + 7
+    X, _, s, b, sn2 = _batch(B, 2, None, 3, cuda, seed=4)
+    before = pairwise.batched_launches
+    K = pairwise.expans_bias_gram(X, s, b, sn2)
+    torch.cuda.synchronize()
+    assert pairwise.batched_launches == before + 1
+    ref = pairwise.expans_bias_gram_plain(X, s, b, sn2)
+    assert (K - ref).abs().max().item() <= 1e-10
+
+
+def test_batched_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    X, Y, s, b, _ = _batch(3, 8, 5, 3, cuda, seed=0)
+    with pytest.raises(ValueError):       # batch sizes differ
+        pairwise.expans_bias_gram(X, s, b, None, Y[:2].contiguous())
+    with pytest.raises(ValueError):       # strided
+        pairwise.expans_bias_gram(X.transpose(0, 1), s, b)
+    with pytest.raises(RuntimeError):     # per-member scalars of 2 members
+        pairwise.expans_bias_gram(X, s[:2], b[:2])
+    with pytest.raises(ValueError):       # one point set, (B,) scalars
+        pairwise.expans_bias_gram(X[0], s, b)
+
+
+def test_batched_nlml_on_cuda_matches_cpu(cuda):
+    # one batched K1 launch per evaluation on the card; values and
+    # gradients equal the CPU's to round-off, a failed member included
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.optim.api import (batched_nlml_fn,
+                                          batched_value_and_grad)
+
+    rng = np.random.default_rng(5)
+    X = rng.uniform(-1, 1, (4, 96, 3))
+    y = np.sin(X @ np.array([3.0, 1.0, 2.0]))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = default_model(3, dtype=torch.float64, device=dev)
+        flats = model.pack().detach().expand(4, -1).clone()
+        flats[2, -1] = -1.0               # a negative noise: a failed factor
+        vg = batched_value_and_grad(
+            batched_nlml_fn(model),
+            torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev))
+        before = (pairwise.launches, pairwise.batched_launches)
+        v, g = vg(flats)
+        after = (pairwise.launches, pairwise.batched_launches)
+        if dev.type == "cuda":
+            assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+        out[dev.type] = (v.cpu().numpy(), g.cpu().numpy())
+    (vc, gc), (vp, gp) = out["cuda"], out["cpu"]
+    # the failed member: NaN value, NaN gradient except where the
+    # objective does not depend on the entry (InversewidthR at d = 3)
+    assert np.isnan(vc[2]) and np.isnan(vp[2])
+    np.testing.assert_array_equal(np.isnan(gc[2]), np.isnan(gp[2]))
+    assert np.isnan(gc[2]).sum() == gc.shape[1] - 1
+    keep = [0, 1, 3]
+    np.testing.assert_allclose(vc[keep], vp[keep], rtol=1e-10)
+    np.testing.assert_allclose(gc[keep], gp[keep], rtol=1e-8, atol=1e-8)

@@ -13,6 +13,7 @@ files are byte for byte the same.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -170,14 +171,40 @@ def test_train_warped_matches_jax_cli(ore, capsys, lf):
     assert np.isfinite(mse) and mse < var_y
 
 
+def test_train_jit_matches_jax_cli(ore, capsys):
+    # -o JIT: the port's batched L-BFGS on one problem against the JAX
+    # package's whole-fit device optimizer (optim/jax_lbfgs.py)
+    train = str(ore / "train.txt")
+    jm, tm = str(ore / "jax_jit"), str(ore / "torch_jit")
+    args = ["train", "--float64", "-o", "JIT", "-#", "10", train]
+    assert jax_main(["-v", "1", *args, jm]) == 0
+    jax_out = capsys.readouterr().out
+    assert torch_main(["-v", "1", *args[:1], "--device", "cpu", *args[1:],
+                       tm]) == 0
+    torch_out = capsys.readouterr().out
+    pat = r"-logL: (\S+) -> (\S+) \((\d+) iters, (-?\d+) evals"
+    (j0, j1, ji, je), (t0, t1, ti, te) = (
+        re.search(pat, out).groups() for out in (jax_out, torch_out))
+    assert (ti, te) == (ji, je) and te == "-1"
+    np.testing.assert_allclose([float(t0), float(t1)],
+                               [float(j0), float(j1)], rtol=RTOL)
+    assert _structure(tm) == _structure(jm)
+    np.testing.assert_allclose(_model_values(tm), _model_values(jm),
+                               rtol=RTOL)
+    nums = [[float(v) for v in re.findall(
+        r"(?:Mean Square Error of training|Var MSE Train): (\S+)", out)]
+        for out in (jax_out, torch_out)]
+    np.testing.assert_allclose(nums[1], nums[0], rtol=RTOL,
+                               atol=RTOL * nums[0][1])
+
+
 @pytest.mark.parametrize("extra,msg", [
     (["--engine", "dist"], "parallel/"),
     (["--engine", "ring"], "parallel/"),
-    (["-o", "JIT"], "optim/jax_lbfgs.py"),
     (["--segmented"], "optim/segmented.py"),
     (["-lf", "Student"], "Unknown likelihood function"),
     (["--init-params", "1,2"], "--init-params needs 9 values"),
-], ids=["dist", "ring", "jit", "segmented", "unknown_lik", "init_params"])
+], ids=["dist", "ring", "segmented", "unknown_lik", "init_params"])
 def test_train_refusals_exit_1(ore, capsys, extra, msg):
     rc = torch_main(["train", "--device", "cpu", *extra,
                      str(ore / "train.txt"), str(ore / "m")])
