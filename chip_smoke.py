@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
+    python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -76,6 +77,29 @@ Phases, each of which raises on failure (nothing is caught):
      warmup + 4 samples, max_depth 8): samples finite and inside the
      box, one batched K1 launch per objective evaluation, split R-hat
      and ESS printed; then `predictive_mixture` over every 10th sample.
+ 19. K1's cross entry at sparse GP regression's Kmn shapes (512 and 2048
+     x 100000) against its plain version in float64 and float32, timed
+     beside its bound, with its closed-form backward's time;
+ 20. `inference.sgpr.fit_sgpr` at N = 100000 composites, m = 512, 60
+     iterations (float32), then `predict` at 4096 held-out queries
+     (MSE < 0.2 var(y)), K1 launches = 2 per evaluation + 3; one
+     evaluation profiled, and one at m = 2048;
+ 21. SGPR at N = 16384, m = 512: float32 through K1 against float64
+     through kernel.matrix, the float64 bound below the exact evidence,
+     and the cross-Gram backward against autograd through kernel.matrix
+     in float64 where Z is a subset of X (coincident pairs);
+ 22. Laplace at N = 16384 in float64: its NLML with Gaussian.log_prob
+     equal to the exact NLML, with WarpedGaussian.log_prob on exp(0.8 y)
+     to the warped exact NLML, and its latent prediction (plus sn2) at
+     4096 queries to the dense `predict`; 7 K1 launches;
+ 23. the opt-in gemm_bf16 mode at N = 65536: its matvec against the
+     float32 store's, and `nlml_and_grad_iterative` in gemm_bf16 against
+     gemm mode with the same probes (CG at its 1e-3 floor; K built in
+     row blocks, one K1 launch each), with its peak memory;
+ 23b. SGPR (m = 512) against the matrix-free exact fit (3 iterations)
+     at N = 65536 from the same start: wall and holdout MSE, printed;
+ 24. utils/: a profiler trace of one SGPR evaluation, `fit` with a
+     checkpoint and its resume on the dense case, `nan_debug` on the card.
 Every bound is the largest of four terms (`bound`): bytes, FP32 work
 outside any product, SFU work and the product on the tensor cores at
 float32 accuracy; the line says which term sets it.
@@ -181,6 +205,51 @@ JIT_ITERS = 5
 # (PERF.md §6)
 NUTS_CHAINS, NUTS_N, NUTS_WARMUP, NUTS_SAMPLES = 8, 2048, 4, 4
 NUTS_THIN = 10
+# the sparse phases: SGPR at N_SGPR composites and M_SGPR inducing points
+# for SGPR_ITERS iterations (benchmarks/large_n.py:500 sgpr_row, run at
+# n = 100000 as bench.py:281 does), predicting N_SGPR_TEST held-out
+# queries; one evaluation at M_SGPR_WIDE, the widest cell of
+# sgpr_sweep_row (benchmarks/large_n.py:456)
+N_SGPR, M_SGPR, SGPR_ITERS, N_SGPR_TEST = 100000, 512, 60, 4096
+M_SGPR_WIDE = 2048
+# SGPR against the matrix-free exact fit at N_ITER_TRAIN: the exact fit's
+# iterations (chol mode on an 80 GB card, ~2.7 s an evaluation)
+EXACT_ITERS = 3
+# SGPR at N_TRAIN, m = M_SGPR: float32 through K1 against float64 through
+# kernel.matrix. Set before the first card run from the CPU's float32
+# (1.5e-5 in the value; 3.2e-5 and 3.0e-4 of the largest hyperparameter
+# and Z gradient entries), 7-30x above those
+SGPR_F32_VAL_REL, SGPR_F32_GRAD_REL, SGPR_F32_Z_REL = 1e-4, 1e-3, 1e-2
+SGPR_BOUND_SLACK = 1e-6         # ELBO <= -NLML + this * |NLML|
+# the cross-Gram backward against autograd through kernel.matrix in
+# float64, of each gradient's largest entry; the second for the rows where
+# the expansion left round-off at a coincident pair
+# (tests/test_torch_sgpr.py)
+CROSS_BWD_RTOL, CROSS_BWD_NOISY_RTOL = 1e-9, 1e-7
+# Laplace at N_TRAIN in float64 against the exact dense algebra: the NLML
+# at 1e-8; the latent variance + sn2, and the mean kX^T alpha_hat from the
+# same Newton run as predict_latent's, at 1e-6 of the dense prediction's
+# largest entry. predict_latent's own mean is kX^T dlp with
+# dlp = (y - f_hat) / sn2, the JAX package's formula, which divides the
+# round-off of f_hat = K alpha_hat by sn2 before kX^T cancels it to O(1);
+# it is held at LAPLACE_MEAN_RTOL beside the alpha_hat gate (the first
+# card run read 1.09e-6; the CPU 5.6e-8 at N = 4096, and 2.8e-12 through
+# alpha_hat, which the Student-t's early stop rules out as the formula)
+LAPLACE_NLML_RTOL, LAPLACE_PRED_RTOL, LAPLACE_MEAN_RTOL = 1e-8, 1e-6, 1e-5
+# gemm_bf16 at N_ITER_TRAIN: its matvec of y within BF16_MATVEC_REL of the
+# float32 store's (tests/test_iterative.py:296-310). Its gradient is gated
+# at BF16_SN2, the warped model's noise floor (exp(2 theta) >= 1 in the
+# box), where A_bf16 stays positive definite: the quantization's spectral
+# norm grows with N (0.039 at N = 4096, 0.065 at 8192 on the CPU,
+# 0.448 at 65536 on an H100), so at the case's sn2 = 0.016 A_bf16 is
+# indefinite past N ~ 2000 and CG stalls. The sigma and sn2 gradients
+# within BF16_GRAD_REL of gemm mode's with the same probes, the Xm gradient
+# within BF16_XM_REL of gemm's largest entry. Set before the first card
+# run from the CPU at the same ratio of quantization to noise (N = 4096,
+# sn2 = 0.25: 3e-3, 3e-3 and 9e-2)
+BF16_MATVEC_REL = 5e-3
+BF16_SN2 = 1.0
+BF16_GRAD_REL, BF16_XM_REL = 5e-2, 0.3
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1151,7 +1220,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
 
     model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
                                             test, model_path)
-    print(f"mode thresholds on this card (chol, gemm max N): "
+    print(f"mode thresholds on this card (chol, gemm, gemm_bf16 max N): "
           f"{ti._mode_thresholds(device)}; CPU defaults "
           f"{ti._mode_thresholds(None)}")
     torch.cuda.reset_peak_memory_stats()
@@ -2050,6 +2119,592 @@ def phase_nuts(device, seed: int, counts, chains=NUTS_CHAINS, n=NUTS_N,
     return samp_k1[0] + mix_k1[0], samp_k1[1] + mix_k1[1]
 
 
+def _sgpr_case(device, seed: int, n: int, dtype):
+    """The ore body's first n composites (training) and N_SGPR_TEST more
+    (held out), standardized by the training set's statistics, and the
+    golden model with the default noise sn2 = SN2, on `device` in
+    `dtype`: (model, X, y, Xq, yq)."""
+    import torch
+
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, apply, prepare
+    from gp_ss_ak_torch.model import load_model
+
+    X, y = ore_body(seed, n + N_SGPR_TEST)
+    Xs, ys, stats = prepare(X[:n], y[:n], MODE_SYMMETRIC)
+    Xq, yq = apply(stats, X[n:], y[n:])
+    model = dataclasses.replace(
+        load_model(os.path.join(GOLDEN, "model"), device="cpu"),
+        lik_hypers=torch.tensor([SN2], dtype=torch.float64))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return model.to(dtype, device), t(Xs), t(ys), t(Xq), t(yq)
+
+
+def _sgpr_value_and_grad(model, X, y, Z, kernel=None):
+    """-ELBO and its gradient in the flat hyperparameters and in Z, as
+    one evaluation of fit_sgpr takes them (one host read); `kernel`
+    replaces the model's (the same parameters)."""
+    import torch
+
+    from gp_ss_ak_torch.inference import sgpr
+
+    kern = kernel or model.kernel
+    nk = model.kernel.n_params
+    flat = model.pack().detach().clone().requires_grad_()
+    Zl = Z.detach().clone().requires_grad_()
+    val = sgpr.neg_elbo(kern, kern.unpack(flat[:nk]), flat[nk:nk + 1], X, y,
+                        Zl)
+    gf, gz = torch.autograd.grad(val, [flat, Zl])
+    out = torch.cat([val.detach().reshape(1), gf, gz.reshape(-1)]).cpu()
+    return (out[0].item(), out[1:1 + flat.numel()].double().numpy(),
+            out[1 + flat.numel():].double().numpy().reshape(Z.shape))
+
+
+def _eval_ms(fn, reps: int = 3) -> float:
+    """Host-clock ms of fn(), which ends in a host read, after a warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_k1_cross(device, seed: int):
+    """K1's cross entry at SGPR's Kmn shapes, (m, N_SGPR) for m = M_SGPR
+    and M_SGPR_WIDE: against its plain version in float64 and float32
+    (phase 3's tolerances), then timed in float32 beside its bound, with
+    the time of FusedExpansBiasCross's backward there. Returns the
+    report of the m = M_SGPR shape."""
+    import torch
+
+    from gp_ss_ak_torch.ops import pairwise
+    from gp_ss_ak_torch.ops.fused import fused_expans_bias_cross
+
+    checked = phase_k1(device, seed, cases=[(m, N_SGPR, 3)
+                                            for m in (M_SGPR, M_SGPR_WIDE)],
+                       time_shapes=False)
+    g = torch.Generator(device=device).manual_seed(seed + 19)
+    X = 3.0 * torch.rand(N_SGPR, 3, generator=g, device=device) - 1.5
+    s_t, b_t = (torch.tensor(v, device=device) for v in (SIGMA, BIAS))
+    report = {}
+    for m in (M_SGPR, M_SGPR_WIDE):
+        Z = X[:m].contiguous()
+        ms = time_ms(lambda: pairwise.expans_bias_gram(Z, s_t, b_t, None, X))
+        plain_ms = time_ms(lambda: pairwise.expans_bias_gram_plain(
+            Z, s_t, b_t, None, X), warmup=2, iters=10)
+        b_ms, b_by = bound(gram_work(m, N_SGPR, 3), **card_rates())
+        leaves = [t.clone().requires_grad_() for t in (Z, X, s_t, b_t)]
+        K = fused_expans_bias_cross(*leaves)
+        G = torch.ones_like(K)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            K, leaves, G, retain_graph=True), warmup=1, iters=5)
+        del K, G
+        print(f"K1 cross {m}x{N_SGPR} f32 (SGPR Kmn): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (set by "
+              f"{b_by}); kernel at {b_ms / ms:.3f} of it; library call: "
+              f"none; FusedExpansBiasCross backward (torch ops) "
+              f"{bwd_ms:.4f} ms")
+        if m == M_SGPR:
+            report = dict(checked, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_sgpr_fit(device, seed: int, counts):
+    """Counted: `fit_sgpr` at N_SGPR composites, M_SGPR inducing points,
+    SGPR_ITERS iterations (float32), then `predict` at N_SGPR_TEST
+    held-out queries. K1 launches: Kmm and Kmn per evaluation, and Kmm,
+    Kmn and Kms for the predict. Then, outside the count, one
+    evaluation under torch.profiler and one at M_SGPR_WIDE. Returns the
+    counted K1 launches."""
+    import torch
+
+    from gp_ss_ak_torch.inference import sgpr
+
+    model, X, y, Xq, yq = _sgpr_case(device, seed, N_SGPR, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, Z, res = sgpr.fit_sgpr(model, X, y, m=M_SGPR, iters=SGPR_ITERS,
+                                   seed=seed)
+    wall = time.perf_counter() - t0
+    fit_k1 = counts()[0] - before[0]
+    t1 = time.perf_counter()
+    mu, var = sgpr.predict(fitted.kernel, fitted.kernel_params,
+                           fitted.lik_hypers, X, y, Z, Xq)
+    mse = torch.mean((mu - yq) ** 2).item()
+    pred_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seen = tuple(a - b for a, b in zip(counts(), before))
+    var_y = torch.var(yq).item()
+    trace = res.trace
+    marks = ", ".join(f"{i}: {trace[i]:.3f}" for i in
+                      sorted({0, *range(10, len(trace), 10), len(trace) - 1}))
+    print(f"SGPR fit at N={N_SGPR}, m={M_SGPR} f32 ({SGPR_ITERS} "
+          f"iterations): {wall:.3f} s, {res.n_iters} iterations, "
+          f"{res.n_evals} evaluations ({wall / res.n_evals * 1e3:.3f} ms "
+          f"each, host clock), stop reason {res.stop_reason}; -ELBO by "
+          f"iteration {marks}; peak device memory {peak:.3f} GiB; predict "
+          f"of {N_SGPR_TEST} held-out queries {pred_s * 1e3:.3f} ms, MSE "
+          f"{mse:.6f} (limit {MSE_MAX * var_y:.6f} = {MSE_MAX} var(y)); "
+          f"fitted sn2 {fitted.lik_hypers[0].item():.6f}")
+    _check(res.fun < res.trace[0], "SGPR fit: the bound did not improve")
+    _check(mse < MSE_MAX * var_y, f"SGPR holdout MSE {mse} too large")
+    _check(bool(torch.isfinite(mu).all() and (var >= 0).all()),
+           "SGPR predict: non-finite mean or negative variance")
+    want = (2 * res.n_evals + 3, 0, 0)
+    _check(seen == want and fit_k1 == 2 * res.n_evals,
+           f"SGPR fit + predict: expected {want[0]} K1 launches (Kmm and "
+           f"Kmn for each of {res.n_evals} evaluations, Kmm, Kmn and Kms "
+           f"for the predict) and no K2 or K3; saw (K1, K2, K3) = {seen}")
+
+    def one():
+        return _sgpr_value_and_grad(fitted, X, y, Z)
+
+    whole = _eval_ms(one)
+    labels = {"kernel:gram_kernel": "K1 forward (Kmm, Kmn)",
+              "FusedExpansBiasCross.backward": "K1 cross backward",
+              "FusedExpansBiasA.backward": "K1 Kmm backward"}
+    _, pwall, split, total, top = profile_split(one, labels)
+    print(f"SGPR evaluation at N={N_SGPR}, m={M_SGPR} f32: {whole:.3f} ms "
+          f"(host clock, unprofiled); under torch.profiler "
+          f"{_split_text(split, labels, pwall, total, top)}")
+    Zw = sgpr.init_inducing(X, M_SGPR_WIDE, seed)
+    torch.cuda.reset_peak_memory_stats()
+    wide = _eval_ms(lambda: _sgpr_value_and_grad(fitted, X, y, Zw))
+    print(f"SGPR evaluation at N={N_SGPR}, m={M_SGPR_WIDE} f32 (the widest "
+          f"cell of sgpr_sweep_row): {wide:.3f} ms (host clock), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    torch.cuda.empty_cache()
+    return seen[0]
+
+
+def _coincident_noise_rows(K, scale):
+    """Rows of K with a pair at distance zero where the Gram expansion
+    left round-off (|K - scale| tiny but not zero)."""
+    gap = (K - scale).abs()
+    return ((gap < 1e-6) & (gap > 0)).any(dim=1).nonzero().flatten()
+
+
+def _rows_close(got, want, noisy, what: str):
+    """got within CROSS_BWD_RTOL of want's largest entry, the `noisy`
+    rows within CROSS_BWD_NOISY_RTOL of it; returns the worst share."""
+    import torch
+
+    scale = want.abs().max().item()
+    keep = torch.ones(want.shape[0], dtype=torch.bool, device=want.device)
+    keep[noisy] = False
+    err = (got - want).abs()
+    worst = err[keep].max().item() / scale
+    worst_noisy = err[~keep].max().item() / scale if len(noisy) else 0.0
+    _check(worst <= CROSS_BWD_RTOL and worst_noisy <= CROSS_BWD_NOISY_RTOL,
+           f"cross-Gram backward disagrees in {what}: {worst:.2e} "
+           f"(noisy rows {worst_noisy:.2e}) of its largest entry")
+    return worst, worst_noisy
+
+
+def phase_sgpr_correct(device, seed: int):
+    """SGPR at N_TRAIN, m = M_SGPR (outside the counted runs): the
+    float32 bound and gradient through K1 against float64 through
+    kernel.matrix (the generic Gram, no K1); the float64 bound below the
+    exact evidence (dense float64 NLML); FusedExpansBiasCross's backward
+    against autograd through kernel.matrix in float64 at Z subsets of X
+    (coincident pairs), m = M_SGPR and M_SGPR_WIDE."""
+    import torch
+
+    from gp_ss_ak_torch.inference import gaussian, sgpr
+    from gp_ss_ak_torch.kernels import Sum
+    from gp_ss_ak_torch.ops.fused import maybe_fused_cross
+
+    m64, X64, y64, _, _ = _sgpr_case(device, seed, N_TRAIN, torch.float64)
+    m32 = m64.to(torch.float32, device)
+    X32, y32 = X64.float(), y64.float()
+    Z64 = sgpr.init_inducing(X64, M_SGPR, seed)
+    # the same model through the generic Gram: a Sum that is not the
+    # flagship takes kernel.matrix
+    generic = Sum([m64.kernel])
+    v32, gf32, gz32 = _sgpr_value_and_grad(m32, X32, y32, Z64.float())
+    v64, gf64, gz64 = _sgpr_value_and_grad(m64, X64, y64, Z64, generic)
+    vfused, _, _ = _sgpr_value_and_grad(m64, X64, y64, Z64)
+    dv = abs(v32 - v64) / abs(v64)
+    dgf = np.abs(gf32 - gf64).max() / np.abs(gf64).max()
+    dgz = np.abs(gz32 - gz64).max() / np.abs(gz64).max()
+    nlml = gaussian.nlml(m64.kernel, m64.kernel_params, m64.lik_hypers, X64,
+                         y64).item()
+    print(f"SGPR at N={N_TRAIN}, m={M_SGPR}: -ELBO f32 through K1 "
+          f"{v32:.6f}, f64 through kernel.matrix {v64:.6f} (f64 through "
+          f"K1 {vfused:.6f}): value {dv:.2e} relative (limit "
+          f"{SGPR_F32_VAL_REL}), hyperparameter gradient {dgf:.2e} of its "
+          f"largest (limit {SGPR_F32_GRAD_REL}), Z gradient {dgz:.2e} of "
+          f"its largest (limit {SGPR_F32_Z_REL}); exact NLML (dense f64) "
+          f"{nlml:.6f}, so ELBO - (-NLML) = {-v64 + nlml:.6f}")
+    _check(dv <= SGPR_F32_VAL_REL, "SGPR f32 bound disagrees with f64")
+    _check(dgf <= SGPR_F32_GRAD_REL and dgz <= SGPR_F32_Z_REL,
+           "SGPR f32 gradient disagrees with f64")
+    _check(-v64 <= -nlml + SGPR_BOUND_SLACK * abs(nlml),
+           "SGPR bound above the exact evidence")
+
+    s2b = (m64.kernel_params[0]["Sigma"] ** 2
+           + m64.kernel_params[1]["Sigma"]).item()
+    g = torch.Generator(device=device).manual_seed(seed + 21)
+    for m in (M_SGPR, M_SGPR_WIDE):
+        Zc = sgpr.init_inducing(X64, m, seed)
+        G = torch.randn(m, N_TRAIN, generator=g, device=device,
+                        dtype=torch.float64)
+        out = []
+        for build in (maybe_fused_cross,
+                      lambda k, p, A, B: k.matrix(p, A, B, same=False)):
+            flat = m64.pack().detach().clone().requires_grad_()
+            A = Zc.clone().requires_grad_()
+            B = X64.clone().requires_grad_()
+            nk = m64.kernel.n_params
+            K = build(m64.kernel, m64.kernel.unpack(flat[:nk]), A, B)
+            out.append((K.detach(), *torch.autograd.grad(
+                (K * G).sum(), [flat, A, B])))
+            del K
+        (Kf, gf_f, gA_f, gB_f), (Kg, gf_g, gA_g, gB_g) = out
+        pairs = int(((Kg - s2b).abs() < 1e-6).sum())
+        noisy_a = _coincident_noise_rows(Kg, s2b)
+        noisy_b = _coincident_noise_rows(Kg.T, s2b)
+        wf = (gf_f - gf_g).abs().max().item() / gf_g.abs().max().item()
+        _check(wf <= CROSS_BWD_RTOL, f"cross-Gram backward disagrees in the "
+               f"hyperparameters: {wf:.2e}")
+        wa = _rows_close(gA_f, gA_g, noisy_a, "Z")
+        wb = _rows_close(gB_f, gB_g, noisy_b, "X")
+        print(f"FusedExpansBiasCross backward at {m}x{N_TRAIN} f64 vs "
+              f"autograd through kernel.matrix: {pairs} coincident pairs "
+              f"({len(noisy_a)} left round-off by the expansion); "
+              f"hyperparameters {wf:.2e}, Z {wa[0]:.2e} (those rows "
+              f"{wa[1]:.2e}), X {wb[0]:.2e} ({wb[1]:.2e}) of each largest "
+              f"entry (limits {CROSS_BWD_RTOL}, {CROSS_BWD_NOISY_RTOL})")
+        _check(pairs == m, "the inducing subset gives no coincident pairs")
+        del out, G
+    torch.cuda.empty_cache()
+    return m32, X32, y32, Z64.float()
+
+
+def phase_laplace(device, seed: int, counts):
+    """Counted: Laplace at N_TRAIN in float64 (the dense wall): the
+    Laplace NLML with Gaussian.log_prob against the exact NLML, the
+    latent prediction (plus sn2) at N_SGPR_TEST queries against dense
+    `predict`, and with WarpedGaussian.log_prob on exp(0.8 y) against
+    the warped exact NLML. K1 launches: K for the Laplace NLML, A for
+    each exact NLML, K and kX for predict_latent, A and the cross-Gram
+    for the dense predict, and kX again for the mean through
+    predict_latent's alpha_hat. Returns its K1 launches."""
+    import torch
+
+    from gp_ss_ak_torch.inference import gaussian, laplace
+    from gp_ss_ak_torch.inference.likelihoods import WarpedGaussian
+
+    model, X, y, Xq, _ = _sgpr_case(device, seed, N_TRAIN, torch.float64)
+    kern, kp, lh = model.kernel, model.kernel_params, model.lik_hypers
+    lik = model.likelihood
+    before = counts()
+    t0 = time.perf_counter()
+    K = gaussian._noisy_gram(kern, kp, 0.0, X)
+    st = {}
+    lap = laplace.nlml(K, y, lambda yy, f: lik.log_prob(lh, yy, f),
+                       stats=st).item()
+    exact = gaussian.nlml(kern, kp, lh, X, y, lik).item()
+    t_nlml = time.perf_counter() - t0
+    wl = WarpedGaussian()
+    wh = wl.default_hypers(torch.float64, device)
+    yw = torch.exp(0.8 * y)
+    stw = {}
+    t0 = time.perf_counter()
+    lap_w = laplace.nlml(K, yw, lambda yy, f: wl.log_prob(wh, yy, f),
+                         stats=stw).item()
+    exact_w = gaussian.nlml(kern, kp, wh, X, yw, wl).item()
+    t_warp = time.perf_counter() - t0
+    del K
+    stp = {}
+    t0 = time.perf_counter()
+    mu, var = laplace.predict_latent(
+        kern, kp, X, y, lambda yy, f: lik.log_prob(lh, yy, f), Xq,
+        stats=stp)
+    t_pred = time.perf_counter() - t0
+    mu_e, var_e = gaussian.predict(kern, kp, lh, X, y, Xq, lik)
+    mu_a = gaussian._cross_gram(kern, kp, X, Xq).T @ stp["alpha"]
+    seen = tuple(a - b for a, b in zip(counts(), before))
+    dmu = ((mu - mu_e).abs().max() / mu_e.abs().max()).item()
+    dmu_a = ((mu_a - mu_e).abs().max() / mu_e.abs().max()).item()
+    dvar = ((var + lh[0] - var_e).abs().max() / var_e.abs().max()).item()
+    print(f"Laplace at N={N_TRAIN} f64: NLML {lap:.10f} vs exact "
+          f"{exact:.10f} ({abs(lap - exact) / abs(exact):.2e} relative, "
+          f"limit {LAPLACE_NLML_RTOL}; {st['newton_iters']} Newton "
+          f"iterations, {st['halvings']} halvings; {t_nlml:.3f} s for both); "
+          f"warped on exp(0.8 y): {lap_w:.10f} vs {exact_w:.10f} "
+          f"({abs(lap_w - exact_w) / abs(exact_w):.2e}; "
+          f"{stw['newton_iters']} Newton iterations, {stw['halvings']} "
+          f"halvings; {t_warp:.3f} s); predict_latent at {N_SGPR_TEST} "
+          f"queries {t_pred:.3f} s ({stp['newton_iters']} Newton "
+          f"iterations): mean kX^T alpha_hat {dmu_a:.2e} (limit "
+          f"{LAPLACE_PRED_RTOL}), mean kX^T dlp {dmu:.2e} (limit "
+          f"{LAPLACE_MEAN_RTOL}), variance + sn2 {dvar:.2e} (limit "
+          f"{LAPLACE_PRED_RTOL}) of the dense predict's largest")
+    _check(abs(lap - exact) <= LAPLACE_NLML_RTOL * abs(exact),
+           "Laplace NLML differs from the exact NLML")
+    _check(abs(lap_w - exact_w) <= LAPLACE_NLML_RTOL * abs(exact_w),
+           "warped Laplace NLML differs from the warped exact NLML")
+    _check(dmu_a <= LAPLACE_PRED_RTOL and dmu <= LAPLACE_MEAN_RTOL
+           and dvar <= LAPLACE_PRED_RTOL,
+           "Laplace latent prediction differs from the dense predict")
+    want = (8, 0, 0)
+    _check(seen == want, f"Laplace: expected 8 K1 launches (K, two exact "
+           f"NLMLs, K and kX, A and the cross-Gram, kX for the alpha_hat "
+           f"mean) and no K2 or K3; saw (K1, K2, K3) = {seen}")
+    torch.cuda.empty_cache()
+    return seen[0]
+
+
+def _quantization_norm(A16, A32, iters: int = 30) -> float:
+    """Spectral norm of the bfloat16 store's error, ||K_bf16 - K_f32||_2,
+    by power iteration over row blocks (no second float32 matrix)."""
+    import torch
+
+    from gp_ss_ak_torch.ops import matvec
+
+    n = A32.shape[0]
+    rows = max(1, matvec.NARROW_BUILD_ELEMS // n)
+    v = torch.ones(n, device=A32.device) / n ** 0.5
+    norm = 0.0
+    for _ in range(iters):
+        w = torch.cat([(A16[s:s + rows].float() - A32[s:s + rows]) @ v
+                       for s in range(0, n, rows)])
+        norm = torch.linalg.norm(w).item()
+        v = w / norm
+    return norm
+
+
+def phase_gemm_bf16(device, seed: int, itrain: str, itest: str,
+                    imodel: str, counts):
+    """The opt-in gemm_bf16 mode on the matrix-free case at N_ITER_TRAIN:
+    its matvec against the float32 store's, and its quantization's
+    spectral norm; then, counted, nlml_and_grad_iterative in gemm_bf16
+    and in gemm mode with the same probes, at the case's noise SN2
+    (printed: the quantization exceeds sn2 there, so A_bf16 is
+    indefinite, as the JAX package documents, iterative.py:675-683) and
+    at BF16_SN2, where A_bf16 stays positive definite (gated). Returns
+    the K1 launches of the four runs."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import matvec
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, itrain,
+                                            itest, imodel)
+    gp = _iterative_gp(model, Xtrs, device)
+    y = torch.as_tensor(ytrs, dtype=torch.float32, device=device)
+    n = y.shape[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    v_rand = torch.randn(n, generator=g, device=device)
+    ops = {dt: matvec.MaterializedOperator(gp.Xm, gp.sigma, gp.bias, gp.sn2,
+                                           store_dtype=dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    rel = {}
+    for name, v in (("y", y), ("randn", v_rand)):
+        ref = ops[torch.float32](v)
+        rel[name] = (torch.linalg.norm(ops[torch.bfloat16](v) - ref)
+                     / torch.linalg.norm(ref)).item()
+    q = _quantization_norm(ops[torch.bfloat16].A, ops[torch.float32].A)
+    del ops
+    torch.cuda.empty_cache()
+    print(f"gemm_bf16 at N={n}: |K_bf16 v - K_f32 v| / |K_f32 v| = "
+          f"{rel['y']:.3e} for v = y, the right-hand side of every solve "
+          f"(limit {BF16_MATVEC_REL}); not gated: {rel['randn']:.3e} for a "
+          f"standard normal v (its size depends on how much K v cancels); "
+          f"||K_bf16 - K_f32||_2 = {q:.4f} (power iteration), against sn2 "
+          f"{SN2} of the case and {BF16_SN2}")
+    _check(rel["y"] <= BF16_MATVEC_REL, "gemm_bf16 matvec disagrees")
+    Zt, Zl = ti.rademacher(g, (n, 8)), ti.rademacher(g, (n, 64))
+    out = {}
+    k1 = 0
+    for sn2 in (SN2, BF16_SN2):
+        gps = gp._replace(sn2=torch.tensor(sn2, device=device))
+        for mode in ("gemm", "gemm_bf16"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val, grads, st = ti.nlml_and_grad_iterative(
+                gps, y, None, None, mode=mode, Z_logdet=Zl, Z_trace=Zt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seen = tuple(a - b for a, b in zip(counts(), before))
+            k1 += seen[0]
+            peak = torch.cuda.max_memory_allocated()
+            out[sn2, mode] = ([float(x) for x in grads[:3]], grads[3], st,
+                              seen)
+            print(f"mode {mode} at N={n}, sn2 {sn2}: value {float(val):.6f} "
+                  f"(not gated: the bf16 SLQ logdet is biased), d(sigma, "
+                  f"bias, sn2) {out[sn2, mode][0]}, {st.cg_iters} CG "
+                  f"iterations, rel residual {float(st.rel_residual):.3e}, "
+                  f"{wall:.3f} s, peak {peak / 2 ** 30:.3f} GiB (2 N^2 bytes "
+                  f"= {2 * n * n / 2 ** 30:.3f} GiB, 4 N^2 = "
+                  f"{4 * n * n / 2 ** 30:.3f} GiB), (K1, K2, K3) launches "
+                  f"{seen}")
+        gg, xg, _, seen_g = out[sn2, "gemm"]
+        gb, xb, stb, seen_b = out[sn2, "gemm_bf16"]
+        dx = ((xb - xg).abs().max() / xg.abs().max()).item()
+        d = [abs(gb[i] - gg[i]) / abs(gg[i]) for i in (0, 2)]
+        print(f"gemm_bf16 vs gemm at sn2 {sn2}: d sigma {d[0]:.2e}, d sn2 "
+              f"{d[1]:.2e} relative (limit {BF16_GRAD_REL}), d Xm {dx:.2e} "
+              f"of its largest (limit {BF16_XM_REL}); d bias "
+              f"|{gb[1] - gg[1]:.3e}| (the float32 cancellation of phase "
+              f"10){'; not gated at the case noise' if sn2 == SN2 else ''}")
+        rows = max(1, matvec.NARROW_BUILD_ELEMS // n)
+        want = (-(-n // rows), 0, 0)
+        _check(seen_b == want and seen_g == (1, 0, 0),
+               f"gemm_bf16 evaluation: expected {want[0]} K1 launches (K in "
+               f"blocks of {rows} rows) and no K2 or K3, and gemm's one; saw "
+               f"(K1, K2, K3) = {seen_b} and {seen_g}")
+    _check(float(stb.rel_residual) <= ti.BF16_CG_TOL_FLOOR
+           and stb.cg_iters < 800,
+           f"gemm_bf16 CG at sn2 {BF16_SN2} did not reach its floor")
+    _check(max(d) <= BF16_GRAD_REL and dx <= BF16_XM_REL,
+           f"gemm_bf16 gradient at sn2 {BF16_SN2} disagrees with gemm's")
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_sgpr_vs_exact(device, seed: int, itrain: str, itest: str,
+                        imodel: str):
+    """Outside the counted runs: SGPR (m = M_SGPR, SGPR_ITERS iterations)
+    against the matrix-free exact fit (`fit(engine="iterative")`, which
+    resolves to chol mode on an 80 GB card, EXACT_ITERS iterations, then
+    the IterativePredictor's mean) on the matrix-free case at
+    N_ITER_TRAIN, from the same starting model: each one's wall (fit and
+    predict, host clock) and holdout MSE on the case's test queries, in
+    the grade's own units. Printed, not gated."""
+    import torch
+
+    from gp_ss_ak_torch.data import unapply_y
+    from gp_ss_ak_torch.inference import sgpr
+    from gp_ss_ak_torch.optim import fit
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    model, stats, Xtrs, ytrs, Xts, yt = _load_case(device, torch.float32,
+                                                   itrain, itest, imodel)
+    n = Xtrs.shape[0]
+    var_y = float(np.var(yt))
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs, Z, rs = sgpr.fit_sgpr(model, Xtrs, ytrs, m=M_SGPR, iters=SGPR_ITERS,
+                              seed=seed)
+    mu, _ = sgpr.predict(fs.kernel, fs.kernel_params, fs.lik_hypers,
+                         torch.as_tensor(Xtrs, dtype=torch.float32,
+                                         device=device),
+                         torch.as_tensor(ytrs, dtype=torch.float32,
+                                         device=device),
+                         Z, torch.as_tensor(Xts, dtype=torch.float32,
+                                            device=device))
+    mse = float(np.mean((unapply_y(stats, mu.cpu().double().numpy())
+                         - yt) ** 2))
+    rows.append(("SGPR m=512", time.perf_counter() - t0, mse, rs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe, re_ = fit(model, Xtrs, ytrs, engine="iterative", iters=EXACT_ITERS)
+    mu, _ = IterativePredictor(fe, Xtrs, ytrs)(Xts, mean_only=True)
+    mse = float(np.mean((unapply_y(stats, np.asarray(mu, np.float64))
+                         - yt) ** 2))
+    rows.append(("matrix-free exact", time.perf_counter() - t0, mse, re_))
+    for name, wall, mse, r in rows:
+        print(f"{name} at N={n}: fit + predict {wall:.3f} s ({r.n_iters} "
+              f"iterations, {r.n_evals} evaluations, {r.stop_reason}), "
+              f"holdout MSE {mse:.6g} = {mse / var_y:.4f} var(y) on "
+              f"{len(yt)} queries; var(y) / MSE per second "
+              f"{var_y / mse / wall:.4f}")
+    torch.cuda.empty_cache()
+
+
+def phase_utils(device, train: str, test: str, model_path: str, workdir: str,
+                sgpr_case):
+    """utils/ on the card (outside the counted runs): a profiler trace of
+    one SGPR evaluation; `fit(checkpoint_path=...)` on the dense case
+    writes a checkpoint and `resume=True` restarts from it; nan_debug
+    raises at a NaN made on the card."""
+    import torch
+
+    from gp_ss_ak_torch.optim import fit
+    from gp_ss_ak_torch.utils.checkpoint import load_fit_checkpoint
+    from gp_ss_ak_torch.utils.debug import nan_debug
+    from gp_ss_ak_torch.utils.profiling import TRACE_FILE, trace
+
+    model, X, y, Z = sgpr_case
+    os.makedirs(workdir, exist_ok=True)
+    tdir = os.path.join(workdir, "trace")
+    with trace(tdir):
+        _sgpr_value_and_grad(model, X, y, Z)
+    text = open(os.path.join(tdir, TRACE_FILE)).read()
+    _check("gram_kernel" in text, "the trace holds no K1 kernel")
+    print(f"utils.profiling.trace: {len(text)} bytes of Chrome trace for one "
+          f"SGPR evaluation, {text.count('gram_kernel')} mentions of K1")
+
+    dense, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    ck = os.path.join(workdir, "fit_checkpoint")
+    for ext in (".npz", ".json"):
+        if os.path.exists(ck + ext):
+            os.remove(ck + ext)
+    t0 = time.perf_counter()
+    _, r1 = fit(dense, Xtrs, ytrs, iters=2, engine="dense",
+                checkpoint_path=ck, checkpoint_every=1)
+    saved = load_fit_checkpoint(ck)
+    _check(saved is not None and 1 <= saved["iteration"] <= r1.n_iters,
+           "fit wrote no checkpoint")
+    _, r2 = fit(dense, Xtrs, ytrs, iters=1, engine="dense",
+                checkpoint_path=ck)
+    rel = abs(r2.trace[0] - saved["fun"]) / abs(saved["fun"])
+    print(f"checkpoint: fit(iters=2) at N={Xtrs.shape[0]} f32 saved "
+          f"iteration {saved['iteration']} (-logL {saved['fun']:.6f}); the "
+          f"resumed fit started at -logL {r2.trace[0]:.6f} ({rel:.1e} "
+          f"relative); {time.perf_counter() - t0:.3f} s for both")
+    _check(rel <= 1e-6, "the resumed fit did not start at the checkpoint")
+    x = torch.tensor([1.0, -1.0], device=device)
+    try:
+        with nan_debug():
+            torch.log(x)
+    except FloatingPointError as e:
+        print(f"nan_debug on the card: raised {e}")
+    else:
+        raise AssertionError("nan_debug did not raise at a NaN on the card")
+    torch.cuda.empty_cache()
+
+
+def run_sparse(device, seed: int, zero, counts, dense_case, icase):
+    """The sparse phases (19-24): K1's cross entry at SGPR's shapes, the
+    counted SGPR fit, SGPR's correctness at N_TRAIN, the counted Laplace
+    and gemm_bf16 runs, SGPR against the exact fit, and utils/.
+    `dense_case` and `icase` are the (train, test, model) files at
+    N_TRAIN and N_ITER_TRAIN. Returns (the K1 launches of the counted
+    runs, the cross-entry report)."""
+    import torch
+
+    train, test, model_path = dense_case
+    itrain, itest, imodel = icase
+    t0 = time.perf_counter()
+    cross = phase_k1_cross(device, seed)
+    zero()
+    k1 = phase_sgpr_fit(device, seed, counts)
+    sgpr_case = phase_sgpr_correct(device, seed)
+    zero()
+    k1 += phase_laplace(device, seed, counts)
+    zero()
+    k1 += phase_gemm_bf16(device, seed, itrain, itest, imodel, counts)
+    phase_sgpr_vs_exact(device, seed, itrain, itest, imodel)
+    phase_utils(device, train, test, model_path, WORK + "_sparse", sgpr_case)
+    torch.cuda.empty_cache()
+    print(f"sparse phases done in {time.perf_counter() - t0:.1f} s")
+    return k1, cross
+
+
 def run_batched(device, seed: int, zero, counts2, train: str, test: str,
                 workdir: str):
     """The batched paths (phases 15-18): K1's batched entry, then the
@@ -2161,10 +2816,12 @@ def run_train_default(itrain: str, zero, counts):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3", "warped", "batched"),
+    ap.add_argument("--only", choices=("k3", "warped", "batched",
+                                       "sparse"),
                     help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
-                         "10b, 11b and 13; batched: phases 1, 2 and 15-18. "
-                         "None prints a result")
+                         "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
+                         "sparse: phases 1, 2 and 19-24. None prints a "
+                         "result")
     args = ap.parse_args(argv)
 
     import torch
@@ -2201,6 +2858,15 @@ def main(argv=None) -> int:
         run_batched(device, args.seed, zero, counts_k1, train, test, WORK)
         print(f"batched phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    if args.only == "sparse":
+        dense = write_case(WORK, args.seed, N_TRAIN, N_TEST)
+        icase = write_case(WORK + "_iterative", args.seed, N_ITER_TRAIN,
+                           N_ITER_TEST)
+        run_sparse(device, args.seed, zero, counts, dense, icase)
+        print(f"sparse phases passed in {time.perf_counter() - t_start:.1f} "
+              f"s")
         return 0
 
     if args.only == "warped":
@@ -2309,6 +2975,14 @@ def main(argv=None) -> int:
                                    test, WORK)
     k1_launches += k1_b
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_batched["max_abs_err"])
+
+    # counted runs 10-12, the sparse phases: the SGPR fit, Laplace and
+    # the gemm_bf16 evaluation, after K1's cross entry at SGPR's shapes
+    k1_s, k1_cross = run_sparse(device, args.seed, zero, counts,
+                                (train, test, model_path),
+                                (itrain, itest, imodel))
+    k1_launches += k1_s
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_cross["max_abs_err"])
 
     print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

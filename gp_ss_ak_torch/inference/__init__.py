@@ -1,8 +1,16 @@
 """Inference: exact (warped-)Gaussian GP regression (gaussian), the warp
-families (warping) and their quadrature, and the iterative solvers of
-the matrix-free engines (inference.iterative)."""
+families (warping) and their quadrature, the iterative solvers of the
+matrix-free engines (iterative), sparse GP regression (sgpr) and
+generic Laplace inference (laplace)."""
 
-from gp_ss_ak_torch.inference import likelihoods, quadrature, warping
+from gp_ss_ak_torch.inference import (
+    iterative,
+    laplace,
+    likelihoods,
+    quadrature,
+    sgpr,
+    warping,
+)
 from gp_ss_ak_torch.inference.gaussian import (
     Posterior,
     factorize,
@@ -33,6 +41,9 @@ __all__ = [
     "make_likelihood",
     "LIK_GAUSSIAN",
     "LIK_WARPGAUSS",
+    "laplace",
+    "sgpr",
+    "iterative",
     "likelihoods",
     "warping",
     "quadrature",

@@ -52,8 +52,8 @@ from gp_ss_ak_torch.inference.likelihoods import Gaussian, WarpedGaussian
 from gp_ss_ak_torch.inference.quadrature import gauss_hermite
 from gp_ss_ak_torch.kernels.distance import highest_precision
 from gp_ss_ak_torch.ops.chol import cholesky
-from gp_ss_ak_torch.ops.fused import (_is_flagship, fused_cross_gram,
-                                      maybe_fused_A)
+from gp_ss_ak_torch.ops.fused import (_is_flagship, maybe_fused_A,
+                                      maybe_fused_cross)
 from gp_ss_ak_torch.utils.psd import robust_cholesky
 
 
@@ -236,7 +236,7 @@ def warped_predictive_mix(likelihood, lik_hypers, mu, var, ymax):
 def _cross_gram(kernel, params, X, Xstar):
     """K(X, X*), (n, m): the fused kernel (K1) for the flagship model,
     else the generic torch Gram."""
-    kX = fused_cross_gram(kernel, params, X, Xstar)
+    kX = maybe_fused_cross(kernel, params, X, Xstar)
     if kX is None:
         if X.dim() != 2:
             raise ValueError("a batch of problems (X of shape (B, n, d)) "

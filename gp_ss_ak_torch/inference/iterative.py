@@ -13,9 +13,9 @@ gradient at N where the kernel matrix cannot exist in memory
 
 Operator modes (`choose_mode`): "chol" materializes A with K1 and
 factors it exactly; "gemm" holds A in float32 and runs CG/SLQ as GEMMs;
-"stream" never builds A. Everything runs in float32, as in the JAX
-package. The JAX package's opt-in "gemm_bf16" (A stored in bfloat16) is
-not ported (ROADMAP §1, the gemm_bf16 operator mode). The stages of an
+"gemm_bf16" (opt-in only) holds K in bfloat16, its solves floored at
+BF16_CG_TOL_FLOOR; "stream" never builds A. Everything else runs in
+float32, as in the JAX package. The stages of an
 evaluation (pivoted Cholesky, whitened solve, SLQ, contraction,
 materialized factor) carry profiler ranges named
 "iterative.<function>", so a torch.profiler trace of the real call
@@ -566,24 +566,26 @@ class IterativeGP(NamedTuple):
     sn2: torch.Tensor
 
 
-#: operator-mode size thresholds of `choose_mode`'s auto pick, for a
-#: 16 GB device (iterative.py:631-641):
+#: operator-mode size thresholds, for a 16 GB device
+#: (iterative.py:631-641):
 #:   chol : A + L both live in f32 during the factorization (8 N^2 B)
-#:   gemm : A in f32 (4 N^2 B)
+#:   gemm : A in f32 (4 N^2 B)  /  gemm_bf16 : K in bf16 (2 N^2 B)
 #: A CUDA device scales them by sqrt(its memory / 16 GB); the CPU keeps
 #: the defaults, so CPU runs resolve modes exactly as the JAX package.
+#: `choose_mode`'s auto pick reads the first two: gemm_bf16 is opt-in.
 CHOL_MATERIALIZE_MAX_N = 32768
 GEMM_MATERIALIZE_MAX_N_F32 = 49152
+GEMM_MATERIALIZE_MAX_N_BF16 = 73728
 _REFERENCE_HBM_BYTES = 16e9
 
-BF16_NOT_PORTED = ("mode 'gemm_bf16' (the JAX package's MaterializedOperator "
-                   "with A stored in bfloat16) is not ported to "
-                   "gp_ss_ak_torch (gp_ss_ak_tpu/inference/iterative.py)")
+#: the achievable relative residual of CG over a bf16-stored operator:
+#: a cg_tol below it only stalls CG to cg_maxiter (iterative.py:644-646)
+BF16_CG_TOL_FLOOR = 1e-3
 
 
 @functools.lru_cache(maxsize=None)
 def _mode_thresholds(device: Optional[torch.device] = None):
-    """(chol_max, gemm_max) for `device`: scaled by
+    """(chol_max, gemm_max, bf16_max) for `device`: scaled by
     sqrt(total memory / 16 GB) on a CUDA device, the defaults elsewhere."""
     scale = 1.0
     if device is not None and torch.device(device).type == "cuda":
@@ -593,28 +595,43 @@ def _mode_thresholds(device: Optional[torch.device] = None):
     def rnd(x):
         return max(1024, int(x * scale) // 1024 * 1024)
 
-    return rnd(CHOL_MATERIALIZE_MAX_N), rnd(GEMM_MATERIALIZE_MAX_N_F32)
+    return (rnd(CHOL_MATERIALIZE_MAX_N), rnd(GEMM_MATERIALIZE_MAX_N_F32),
+            rnd(GEMM_MATERIALIZE_MAX_N_BF16))
 
 
 def choose_mode(n: int, mode: str = "auto", device=None) -> str:
     """Resolve the operator mode for problem size n on `device`:
     "chol" (materialize A, exact Cholesky), "gemm" (A in f32, CG/SLQ as
-    GEMMs) or "stream" (never materialize). The JAX package's opt-in
-    "gemm_bf16" raises NotImplementedError."""
-    if mode == "gemm_bf16":
-        raise NotImplementedError(BF16_NOT_PORTED)
+    GEMMs), "stream" (never materialize), or the opt-in "gemm_bf16"
+    (K in bfloat16), which auto never picks: the ~0.4% entrywise
+    quantization of K has spectral norm ~ 0.002 sqrt(N), which swamps
+    the flagship's sn2 = 0.016 past N ~ 10^3 and biases the SLQ logdet
+    by hundreds of nats (iterative.py:675-683); its value is not to be
+    trusted. Where the quantization exceeds sn2 the stored A is
+    indefinite and CG stalls: at the flagship's default noise this mode
+    returns a ZERO gradient and raises nothing (an H100 at N = 65536,
+    sn2 = 0.016: rel_residual 1.0; the JAX package does the same), so
+    fit(engine_opts={"mode": "gemm_bf16"}) stops at its start as if
+    converged. It is fit-grade only where sn2 stays above the
+    quantization (sn2 = 1 there: the sigma and sn2 gradients within
+    5.0e-3 of "gemm"'s)."""
     if mode != "auto":
-        valid = ("chol", "gemm", "stream")
+        valid = ("chol", "gemm", "gemm_bf16", "stream")
         if mode not in valid:
             raise ValueError(f"mode must be one of {valid} or 'auto'")
         return mode
     chol_max, gemm_max = _mode_thresholds(
-        None if device is None else torch.device(device))
+        None if device is None else torch.device(device))[:2]
     if n <= chol_max:
         return "chol"
     if n <= gemm_max:
         return "gemm"
     return "stream"
+
+
+def _effective_cg_tol(cg_tol: float, mode: str) -> float:
+    return max(cg_tol, BF16_CG_TOL_FLOOR) if mode == "gemm_bf16" \
+        else cg_tol
 
 
 def _flagship_operator(it_gp: IterativeGP, mode: str = "stream"):
@@ -623,9 +640,10 @@ def _flagship_operator(it_gp: IterativeGP, mode: str = "stream"):
         MatvecOperator,
     )
 
-    if mode == "gemm":
+    if mode in ("gemm", "gemm_bf16"):
+        dt = torch.float32 if mode == "gemm" else torch.bfloat16
         return MaterializedOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
-                                    it_gp.sn2)
+                                    it_gp.sn2, store_dtype=dt)
     return MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
 
 
@@ -687,6 +705,7 @@ def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
         val = 0.5 * torch.dot(y, alpha) + half_logdet + _const(n)
         return val, alpha, 0
     op = _flagship_operator(it_gp, mode=mode)
+    cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
     if L is None:
         alpha, it, _ = cg_solve(op, y, tol=cg_tol, maxiter=cg_maxiter)
@@ -729,6 +748,7 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
         del L
         return _grad_contraction(it_gp, alpha, ws, Zm.T, chunk)
     op = _flagship_operator(it_gp, mode=mode)
+    cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
 
     def _solve(B):
@@ -850,6 +870,7 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
         return val, grads, IterStats(
             0, torch.zeros((), dtype=torch.float32, device=y.device), alpha)
     op = _flagship_operator(it_gp, mode=mode)
+    cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
     Zm = _probes(key_trace, n, probes, Z_trace, y.device)
     rhs = torch.cat([y[:, None], Zm], 1)

@@ -42,6 +42,12 @@ class Gaussian:
         return hypers[0]
 
     @staticmethod
+    def log_prob(hypers, y, f):
+        sn2 = hypers[0]
+        r = y - f
+        return -(r * r) / (2.0 * sn2) - 0.5 * torch.log(2.0 * math.pi * sn2)
+
+    @staticmethod
     def effective_target(hypers, y):
         """The value the conjugate Gaussian algebra regresses on."""
         return y, torch.zeros_like(y)  # (g(y), log g'(y)=0)

@@ -38,8 +38,9 @@ masks ragged edges. It only wants each point as whole float4s, so
 (zero features add nothing to a distance).
 
 `MatvecOperator` (the streamed operator: `__call__` is K2, `matmat` K3)
-and `MaterializedOperator` (K built once by K1, then GEMMs) are the two
-operators of inference/iterative.py's modes.
+and `MaterializedOperator` (K built once by K1 and stored in float32 or
+bfloat16, then GEMMs) are the operators of inference/iterative.py's
+modes.
 """
 
 from __future__ import annotations
@@ -258,29 +259,77 @@ class MatvecOperator:
                                V.to(torch.float32).contiguous())
 
 
+#: K entries built per K1 launch when K is stored in a narrower type
+#: (and multiplied per block on the CPU): each float32 block holds at
+#: most 1 GiB, so the build peaks near the stored matrix's size, not at
+#: a whole float32 K beside it
+NARROW_BUILD_ELEMS = 1 << 28
+
+
+def _product_f32(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """A @ V.to(A.dtype) accumulated and returned in float32, as JAX's
+    matmul with preferred_element_type=float32 (matvec.py:215-217): one
+    cuBLAS GEMM with a float32 output on CUDA (`aten::mm.dtype`); on the
+    CPU, which has no such kernel, the stored values multiplied in
+    float32 a block of A's columns at a time (no float32 copy of A)."""
+    Vq = V.to(A.dtype)
+    if A.is_cuda:
+        return torch.mm(A, Vq, out_dtype=torch.float32)
+    n, k = A.shape
+    cols = max(1, NARROW_BUILD_ELEMS // max(n, 1))
+    out = torch.zeros((n, V.shape[1]), dtype=torch.float32, device=A.device)
+    for s in range(0, k, cols):
+        out += A[:, s:s + cols].float() @ Vq[s:s + cols].float()
+    return out
+
+
 class MaterializedOperator:
     """A = s^2 exp(-dist) + bias + sn2 I with K = s^2 exp(-dist) + bias
     built ONCE by the fused Gram kernel (K1, ops/pairwise.py) and held in
-    float32 device memory; every product is then one matmul (plain XLA
-    in the JAX package, so a torch matmul here) plus sn2 V in float32
-    (matvec.py:184-188). The JAX class's bfloat16 store (`gemm_bf16`
-    mode) is not ported (inference/iterative.choose_mode)."""
+    device memory in `store_dtype`; every product is then one matmul
+    (plain XLA in the JAX package, so a torch matmul here) plus sn2 V in
+    float32 (matvec.py:160-218).
 
-    def __init__(self, Xm: torch.Tensor, sigma, bias, sn2):
+    float32 storage (the "gemm" mode) builds K in one launch and
+    multiplies at full float32 precision. bfloat16 storage (the opt-in
+    "gemm_bf16" mode) halves the footprint to 2 N^2 bytes: K is built
+    NARROW_BUILD_ELEMS entries at a time by K1's cross entry (each row
+    block against all points, its diagonal entries set to the square
+    build's exact s^2 + bias) and rounded to bfloat16; the product
+    rounds V to bfloat16 and accumulates in float32, so a matvec is
+    accurate to ~1e-3 relative, which bounds the achievable CG residual
+    (inference.iterative.BF16_CG_TOL_FLOOR). The noise diagonal is
+    never quantized: sn2 V is added in float32."""
+
+    def __init__(self, Xm: torch.Tensor, sigma, bias, sn2,
+                 store_dtype: torch.dtype = torch.float32):
         f32 = torch.float32
         Xm = Xm.to(f32).contiguous()
-        self.n = Xm.shape[0]
-        # sn2 = 0: the stored matrix is K only (diagonal s2 + bias exactly)
-        self.A = expans_bias_gram(Xm, sigma, bias, 0.0)
+        self.n = n = Xm.shape[0]
         self.sigma = torch.as_tensor(sigma, dtype=f32, device=Xm.device)
         self.bias = torch.as_tensor(bias, dtype=f32, device=Xm.device)
         self.sn2 = torch.as_tensor(sn2, dtype=f32, device=Xm.device)
+        if store_dtype == f32:
+            # sn2 = 0: the stored matrix is K only (diagonal s2 + bias)
+            self.A = expans_bias_gram(Xm, sigma, bias, 0.0)
+            return
+        self.A = torch.empty((n, n), dtype=store_dtype, device=Xm.device)
+        on_diag = self.sigma * self.sigma + self.bias
+        rows = max(1, NARROW_BUILD_ELEMS // max(n, 1))
+        for s in range(0, n, rows):
+            K = expans_bias_gram(Xm[s:s + rows], sigma, bias, None, Xm2=Xm)
+            K.diagonal(offset=s).copy_(on_diag)
+            self.A[s:s + rows] = K
+            del K       # freed before the next block is built
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return self.matmat(v[:, None])[:, 0]
 
     def matmat(self, V: torch.Tensor) -> torch.Tensor:
         V = V.to(torch.float32)
-        with highest_precision():
-            KV = self.A @ V
+        if self.A.dtype == torch.float32:
+            with highest_precision():
+                KV = self.A @ V
+        else:
+            KV = _product_f32(self.A, V)
         return KV + self.sn2 * V

@@ -17,8 +17,11 @@ loop of batched evaluations. `batched_nlml_fn` is the objective of B
 independent problems at once (the multi-deposit ensembles, the
 sampler's chains).
 
-Not ported (each raises, naming the JAX module): mid-fit checkpoints
-(utils/checkpoint.py) and the segmented evaluator (optim/segmented.py).
+`fit(checkpoint_path=...)` saves the flat hyper vector every
+`checkpoint_every` iterations and, with `resume`, starts from the last
+one saved (utils/checkpoint.py, the JAX package's files). Not ported
+(it raises, naming the JAX module): the segmented evaluator
+(optim/segmented.py).
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ from gp_ss_ak_torch.optim.lbfgsb import (
     OptResult,
 )
 from gp_ss_ak_torch.optim.scg import SCG
+from gp_ss_ak_torch.utils.checkpoint import (
+    CheckpointCallback,
+    load_fit_checkpoint,
+)
 
 #: the optimizer names of the batched L-BFGS (gp_ss_ak_tpu/optim/api.py:
 #: 240-276, the JAX package's whole-fit device optimizer)
@@ -210,6 +217,8 @@ def fit(
     verbose: int = 0,
     callback=None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    resume: bool = True,
     engine: str = "auto",
     engine_opts: Optional[dict] = None,
     timing: Optional[dict] = None,
@@ -223,6 +232,13 @@ def fit(
     model only, float32), or "auto" (`resolve_engine`).
     `engine_opts` go to make_iterative_value_and_grad.
 
+    With `checkpoint_path`, the flat hyper vector is saved every
+    `checkpoint_every` iterations and (if `resume`) restored as the
+    starting point on the next call: the reference's hypers-only
+    checkpoint philosophy applied mid-run (utils/checkpoint.py). The
+    batched L-BFGS (`optimizer="JIT"`) starts from a checkpoint but
+    saves none, as in the JAX package.
+
     Pass a dict as `timing` to receive {"backend_touch_s", "eval_s"
     (list), "eval_spans", "n_evals", "eval_s_sum", "eval_s_first",
     "eval_s_steady_median", "pre_first_eval_s", "post_last_eval_s"},
@@ -231,10 +247,6 @@ def fit(
     `pre_first_eval_s` counts from the end of the backend touch, so the
     two do not overlap. `opt_opts` go to the optimizer's constructor."""
     t_enter = time.perf_counter()
-    if checkpoint_path:
-        raise NotImplementedError(
-            "fit(checkpoint_path=...) is not ported to gp_ss_ak_torch yet "
-            "(utils/checkpoint.py)")
     device = model.pack().device
     t_ready = t_enter
     if timing is not None:
@@ -244,6 +256,13 @@ def fit(
         t_ready = time.perf_counter()
         timing["backend_touch_s"] = t_ready - t_enter
     x0 = model.pack().detach().cpu().numpy().astype(np.float64)
+    if checkpoint_path:
+        if resume:
+            ck = load_fit_checkpoint(checkpoint_path)
+            if ck is not None and ck["x"].shape == x0.shape:
+                x0 = ck["x"]
+        callback = CheckpointCallback(checkpoint_path, checkpoint_every,
+                                      inner=callback)
     p = x0.shape[0]
     lb = np.full(p, DEFAULT_LOWER) if lower is None else np.asarray(lower)
     ub = np.full(p, DEFAULT_UPPER) if upper is None else np.asarray(upper)
@@ -270,7 +289,9 @@ def fit(
         # in the JAX package
         name = "LBFGS"
     if name in DEVICE_LOOP:
-        return _fit_device_loop(model, X, y, lb, ub, iters, jitter, timing)
+        start = model.unpack(torch.as_tensor(x0, dtype=model.pack().dtype,
+                                             device=device))
+        return _fit_device_loop(start, X, y, lb, ub, iters, jitter, timing)
     if eng == "iterative":
         opts.setdefault("jitter", jitter)
         vgrad = make_iterative_value_and_grad(model, X, y, **opts)

@@ -128,7 +128,7 @@ class IterativePredictor:
 
     Queries are recentred by the TRAINING mean and mapped through the
     same metric M as the training points (not the combined-mean
-    convention of ops/fused.fused_cross_gram); distances are
+    convention of ops/fused.maybe_fused_cross); distances are
     translation invariant, so this only affects round-off.
 
     A WarpedGaussian model runs the same algebra on g(y) (alpha =

@@ -106,7 +106,7 @@ def test_batched_mapping_and_autograd_equal_each_member():
     kp, lh = unpack_batched(mt, flats)
     ex = mt.kernel.children[0]
     Xm = fused.mapped_points(ex, kp[0], X)
-    Kx = fused.fused_cross_gram(mt.kernel, kp, X, Xs)
+    Kx = fused.maybe_fused_cross(mt.kernel, kp, X, Xs)
     G = t64(rng.normal(size=(B, n, n)))
     leaves = [Xm.detach().requires_grad_(), kp[0]["Sigma"].detach()
               .requires_grad_(), kp[1]["Sigma"].detach().requires_grad_(),
@@ -120,7 +120,7 @@ def test_batched_mapping_and_autograd_equal_each_member():
             rtol=1e-13, atol=1e-14)
         np.testing.assert_allclose(
             Kx[b].numpy(),
-            fused.fused_cross_gram(mt.kernel, kb, X[b], Xs[b]).numpy(),
+            fused.maybe_fused_cross(mt.kernel, kb, X[b], Xs[b]).numpy(),
             rtol=1e-13, atol=1e-14)
         one = [leaf[b].detach().requires_grad_() for leaf in leaves]
         g1 = torch.autograd.grad((fused.fused_expans_bias_A(*one) * G[b])

@@ -489,3 +489,154 @@ def test_batched_nlml_on_cuda_matches_cpu(cuda):
     keep = [0, 1, 3]
     np.testing.assert_allclose(vc[keep], vp[keep], rtol=1e-10)
     np.testing.assert_allclose(gc[keep], gp[keep], rtol=1e-8, atol=1e-8)
+
+
+def _coincident_sets(device, seed):
+    """Two point sets (24 and 40 points, d = 3) with 8 exact coincident
+    pairs, as sparse GP regression's inducing subset gives."""
+    X = _points(40, 3, device, seed)
+    Z = _points(24, 3, device, seed + 1)
+    Z[::3] = X[1:17:2]
+    return Z, X
+
+
+def test_fused_cross_autograd_on_cuda_matches_cpu(cuda):
+    # the cross-Gram's closed-form backward (r by direct differences on
+    # both devices) gives equal gradients to round-off; the forward
+    # differs at the coincident pairs, where the card's direct
+    # differences give r = 0 exactly and the plain version's expansion
+    # sqrt(round-off) ~ 1e-8
+    from gp_ss_ak_torch.ops.fused import fused_expans_bias_cross
+
+    Z, X = _coincident_sets(cuda, seed=21)
+    G = torch.randn(24, 40, dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (
+            Z, X, torch.tensor(SIGMA, dtype=torch.float64),
+            torch.tensor(BIAS, dtype=torch.float64))]
+        before = pairwise.launches
+        K = fused_expans_bias_cross(*leaves)
+        if dev.type == "cuda":
+            assert pairwise.launches == before + 1
+        out[dev.type] = (K.detach().cpu(), [g.cpu() for g in
+                         torch.autograd.grad((K * G.to(dev)).sum(), leaves)])
+    Kc, Kp = out["cuda"][0], out["cpu"][0]
+    same = torch.cdist(Z, X).cpu() == 0
+    assert int(same.sum()) == 8
+    assert torch.all(Kc[same] == SIGMA * SIGMA + BIAS)
+    np.testing.assert_allclose(Kc[~same], Kp[~same], rtol=0,
+                               atol=1e-10 * SCALE)
+    np.testing.assert_allclose(Kc[same], Kp[same], rtol=0, atol=1e-7)
+    for gc, gp in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(gc, gp, rtol=1e-9, atol=1e-9)
+
+
+def test_sgpr_on_cuda_matches_cpu(cuda):
+    # float64, inducing points on a subset of the data: one square and
+    # one cross K1 launch per evaluation of the bound. The forwards differ
+    # by ~1e-8 at the coincident pairs (the card's r is 0 there, the
+    # plain version's expansion leaves sqrt(round-off);
+    # tests/test_torch_sgpr.py), which moves the value by ~1e-9 (measured
+    # 1.07e-9 on an H100): the value is held at 1e-8, the hyperparameter
+    # gradient at 1e-8, the Z gradient within 1e-7 of its largest entry
+    from gp_ss_ak_torch.inference import sgpr
+    from gp_ss_ak_torch.model import default_model
+
+    rng = np.random.default_rng(4)
+    X = rng.uniform(-1, 1, (300, 3))
+    y = np.sin(2 * X[:, 0]) + 0.1 * rng.normal(size=300)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = default_model(3, dtype=torch.float64, device=dev)
+        Xd = torch.as_tensor(X, device=dev)
+        flat = model.pack().detach().clone().requires_grad_()
+        Z = sgpr.init_inducing(Xd, 40, seed=1).clone().requires_grad_()
+        before = pairwise.launches
+        kp = model.kernel.unpack(flat[:model.kernel.n_params])
+        v = sgpr.neg_elbo(model.kernel, kp, flat[model.kernel.n_params:],
+                          Xd, torch.as_tensor(y, device=dev), Z)
+        if dev.type == "cuda":
+            assert pairwise.launches == before + 2
+        gf, gz = torch.autograd.grad(v, [flat, Z])
+        out[dev.type] = (v.item(), gf.cpu().numpy(), gz.cpu().numpy())
+    (vc, gfc, gzc), (vp, gfp, gzp) = out["cuda"], out["cpu"]
+    assert vc == pytest.approx(vp, rel=1e-8)
+    np.testing.assert_allclose(gfc, gfp, rtol=1e-8,
+                               atol=1e-8 * np.abs(gfp).max())
+    np.testing.assert_allclose(gzc, gzp, rtol=0,
+                               atol=1e-7 * np.abs(gzp).max())
+
+
+def test_bf16_operator_on_cuda_matches_cpu(cuda, monkeypatch):
+    # the card's bf16 store is built in row blocks by K1's cross entry
+    # (one launch a block) and multiplied by one cuBLAS GEMM with a
+    # float32 output; on the same stored K the CPU's float32 blocks give
+    # the product within 1e-5 of max |y|, and the two builds differ by a
+    # bfloat16 rounding here and there
+    X = _points(1000, 3, cuda, seed=9).float()
+    V = torch.randn(1000, 5, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    monkeypatch.setattr(matvec, "NARROW_BUILD_ELEMS", 256 * 1000)
+    before = pairwise.launches
+    opc = matvec.MaterializedOperator(X, SIGMA, BIAS, SN2,
+                                      store_dtype=torch.bfloat16)
+    assert pairwise.launches == before + 4
+    opp = matvec.MaterializedOperator(X.cpu(), SIGMA, BIAS, SN2,
+                                      store_dtype=torch.bfloat16)
+    Ac, Ap = opc.A.float().cpu(), opp.A.float()
+    flips = Ac != Ap
+    assert int(flips.sum()) <= 1e-3 * Ac.numel()
+    assert torch.equal(opc.A.diagonal().cpu(), opp.A.diagonal())
+    opp.A = opc.A.cpu()
+    Yc, Yp = opc.matmat(V).cpu(), opp.matmat(V.cpu())
+    assert Yc.dtype == torch.float32
+    np.testing.assert_allclose(Yc, Yp, rtol=0,
+                               atol=1e-5 * Yp.abs().max().item())
+
+
+def test_laplace_on_cuda_matches_cpu(cuda):
+    # float64: K and kX by K1 on the card (two launches), the Newton
+    # iteration's steps and line-search evaluations equal the CPU's
+    from gp_ss_ak_torch.inference import laplace
+    from gp_ss_ak_torch.model import default_model
+
+    rng = np.random.default_rng(6)
+    X = rng.uniform(-1, 1, (200, 3))
+    y = np.sin(2 * X[:, 0]) + 0.1 * rng.normal(size=200)
+    Xs = rng.uniform(-1, 1, (50, 3))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = default_model(3, dtype=torch.float64, device=dev)
+        hyp = model.lik_hypers
+
+        def log_prob(yy, f):
+            return model.likelihood.log_prob(hyp, yy, f)
+
+        stats = {}
+        before = pairwise.launches
+        mu, var = laplace.predict_latent(
+            model.kernel, model.kernel_params, torch.as_tensor(X, device=dev),
+            torch.as_tensor(y, device=dev), log_prob,
+            torch.as_tensor(Xs, device=dev), stats=stats)
+        if dev.type == "cuda":
+            assert pairwise.launches == before + 2
+        out[dev.type] = (mu.cpu().numpy(), var.cpu().numpy(), stats)
+    (mc, vc, sc), (mp, vp, sp) = out["cuda"], out["cpu"]
+    assert sc["newton_iters"] == sp["newton_iters"]
+    np.testing.assert_allclose(mc, mp, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(vc, vp, rtol=1e-8, atol=1e-9)
+
+
+def test_nan_debug_and_checked_on_cuda(cuda):
+    from gp_ss_ak_torch.utils.debug import checked, nan_debug
+
+    x = torch.tensor([1.0, -1.0], device=cuda)
+    with nan_debug():
+        with pytest.raises(FloatingPointError, match="log"):
+            torch.log(x)
+    err, out = checked(torch.log)(x)
+    assert err.get() is not None and out.is_cuda
+    err, _ = checked(torch.exp)(x)
+    assert err.get() is None

@@ -96,8 +96,8 @@ def test_fused_cross_gram_matches_jax(d):
     Xs = rng.normal(size=(17, d)) + 3.0
     Kj = np.asarray(jfused.fused_cross_gram(mj.kernel, mj.kernel_params,
                                             jnp.asarray(X), jnp.asarray(Xs)))
-    Kt = tfused.fused_cross_gram(mt.kernel, mt.kernel_params, t64(X),
-                                 t64(Xs))
+    Kt = tfused.maybe_fused_cross(mt.kernel, mt.kernel_params, t64(X),
+                                  t64(Xs)).detach()
     np.testing.assert_allclose(Kt.numpy(), Kj, rtol=RTOL, atol=ATOL)
     # and both equal the generic Gram (combined-mean recentring)
     Kg = mt.kernel.matrix(mt.kernel_params, t64(X), t64(Xs))
@@ -108,7 +108,7 @@ def test_non_flagship_takes_the_generic_path():
     m = tm.default_model(3, kernel_names=["RBF"], device="cpu")
     X = torch.zeros((8, 3), dtype=F64)
     assert tfused.maybe_fused_A(m.kernel, m.kernel_params, 0.1, X) is None
-    assert tfused.fused_cross_gram(m.kernel, m.kernel_params, X, X) is None
+    assert tfused.maybe_fused_cross(m.kernel, m.kernel_params, X, X) is None
 
 
 def test_wrapper_never_falls_back_off_cpu():

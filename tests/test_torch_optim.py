@@ -147,8 +147,6 @@ def test_fit_timing_has_no_double_count():
 def test_fit_refuses_what_is_not_ported():
     _, mt = models()
     X, y = data(n=16)
-    with pytest.raises(NotImplementedError, match="utils/checkpoint.py"):
-        to.fit(mt, X, y, iters=1, checkpoint_path="ck.npz")
     with pytest.raises(NotImplementedError, match="optim/segmented.py"):
         to.fit(mt, X, y, iters=1, engine="iterative",
                engine_opts={"segmented": True})

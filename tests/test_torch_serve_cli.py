@@ -236,6 +236,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import gp_ss_ak_torch.utils.psd, gp_ss_ak_torch.native.loader\n"
         "import gp_ss_ak_torch.ensemble, gp_ss_ak_torch.bayes\n"
         "import gp_ss_ak_torch.optim.batched_lbfgs\n"
+        "import gp_ss_ak_torch.inference.sgpr\n"
+        "import gp_ss_ak_torch.inference.laplace\n"
+        "import gp_ss_ak_torch.utils.checkpoint\n"
+        "import gp_ss_ak_torch.utils.profiling, gp_ss_ak_torch.utils.debug\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
