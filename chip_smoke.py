@@ -7,6 +7,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
+    python3 chip_smoke.py --only parallel (phases 1, 2, 25-30)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -100,6 +101,27 @@ Phases, each of which raises on failure (nothing is caught):
      at N = 65536 from the same start: wall and holdout MSE, printed;
  24. utils/: a profiler trace of one SGPR evaluation, `fit` with a
      checkpoint and its resume on the dense case, `nan_debug` on the card.
+ 25. the mesh engines (parallel/) in float64 at N = 4096 on a mesh of one
+     rank (NCCL): the dist NLML and exact gradient against the dense
+     engine, its predict against the dense Predictor, the ring NLML and
+     the ring predict (alpha and the variance columns by its whitened CG)
+     against the dense Predictor;
+ 26. the same on 4 ranks sharing the card (this script run 4 times with
+     --mesh-rank, gloo asked for by name, host-staged), held to one rank;
+ 27. the two-level meshes (2 chains x 2 rows) at N = 2048, dist and
+     ring, each chain held to itself alone on one rank;
+ 28. K1's cross entry at the dist panel (16384^2) and the ring tile
+     (65536 x 4096) against its plain version, on independent and on
+     coincident points, timed beside its bound;
+     the dist NLML in float32 at N = 16384 with the exact and the
+     Hutchinson gradient against the dense engine (2 K1 launches an
+     evaluation), profiled; `train --engine dist -# 3` and `test`;
+ 29. the ring at N = 65536 in float32: one evaluation with its CG
+     iterations, residual, time and peak memory, profiled, then
+     `fit_ring` for 2 iterations;
+ 30. `make_ring_predict` at 256 queries against the same in float64 and
+     IterativePredictor (variances against the prior variance), with a
+     TF32 control the variance gate must reject.
 Every bound is the largest of four terms (`bound`): bytes, FP32 work
 outside any product, SFU work and the product on the tensor cores at
 float32 accuracy; the line says which term sets it.
@@ -251,6 +273,40 @@ BF16_MATVEC_REL = 5e-3
 BF16_SN2 = 1.0
 BF16_GRAD_REL, BF16_XM_REL = 5e-2, 0.3
 
+# the mesh engines (parallel/): float64 at N_DIST64 rows on a mesh of one
+# rank (NCCL) and of MESH_RANKS ranks sharing the one card (gloo, asked for
+# by name: NCCL takes one rank a card), MESH_QUERIES predicted; the
+# two-level meshes (2 chains x 2 rows) at N_TWO; float32 at N_TRAIN (the
+# dense route's width) and the ring at N_ITER_TRAIN (the matrix-free
+# width) on one rank; DIST_NB the fits' block size (parallel/fit.py)
+N_DIST64, MESH_RANKS, MESH_QUERIES, N_TWO = 4096, 4, 512, 2048
+DIST_NB = 256
+MESH_TIMEOUT_S = 600            # the MESH_RANKS-rank launch, start-up included
+DIST_TRAIN_ITERS, RING_FIT_ITERS, RING_PREDICT_QUERIES = 3, 2, 256
+# the ring predict in float32 at N_ITER_TRAIN against IterativePredictor
+# on the same model and against the same ring predict in float64 (CG to
+# 1e-10): means within phase 10's ITER_MEAN_TOL x std(y), variances within
+# phase 10's ITER_VAR_RTOL of the prior variance s^2 + bias + sn2. That is
+# the scale of the float32 error in s^2 + bias - k' A^-1 k; relative to
+# the variance itself, small where the data pin the mean down, the
+# cancellation inflates it (on an H100 at N = 65536 both float32 solves
+# sit 1.6-1.7e-2 from float64 at the worst of 256 queries). The same
+# ring predict with its tile products in TF32 is a control the variance
+# gate must reject
+# the float64 ring: its probes, a preconditioner of rank 64 and a CG run
+# to convergence, so one rank and MESH_RANKS agree to round-off
+RING_PROBES, RING_SLQ_PROBES, RING64_RANK, RING64_CG_TOL = 8, 16, 64, 1e-10
+# the gates: dist against the dense engine (value, gradient of its largest
+# entry) and the dense Predictor; MESH_RANKS ranks against one (dist,
+# ring value, ring gradient); the ring predict's solves against the dense
+# Predictor;
+# a two-level chain against itself alone; float32 at N_TRAIN against the
+# dense engine (value over max(|v|, n), exact gradient of its largest
+# entry)
+DIST64_VAL_RTOL, DIST64_GRAD_RTOL, DIST64_PRED_RTOL = 1e-9, 1e-7, 1e-9
+DIST_P4_RTOL, RING_P4_RTOL, RING_P4_GRAD = 1e-10, 1e-9, 1e-8
+RING_ALPHA_RTOL, TWO_LEVEL_RTOL = 1e-6, 1e-9
+DIST_F32_VAL_REL, DIST_F32_GRAD_REL = 5e-5, 5e-5
 
 def _check(ok: bool, what: str) -> None:
     if not ok:
@@ -2813,15 +2869,599 @@ def run_train_default(itrain: str, zero, counts):
     return counts()[0], counts()[2]
 
 
+# ---------------------------------------------------------------------------
+# the mesh engines (parallel/): phases 25-30
+# ---------------------------------------------------------------------------
+
+def _golden_model(device, dtype):
+    """The golden ExpAns+Bias hyperparameters with the default noise,
+    on `device` in `dtype`."""
+    import torch
+
+    from gp_ss_ak_torch.model import load_model
+
+    model = load_model(os.path.join(GOLDEN, "model"), dtype, device)
+    return dataclasses.replace(model, lik_hypers=torch.tensor(
+        [SN2], dtype=dtype, device=device))
+
+
+def _mesh_problem(seed: int, n: int, n_query: int = 0):
+    """The ore body at n training points, standardized as the CLI does,
+    and n_query held-out queries in the same frame."""
+    from gp_ss_ak_torch.data import MODE_SYMMETRIC, apply, prepare
+
+    X, y = ore_body(seed, n + n_query)
+    Xs, ys, stats = prepare(X[:n], y[:n], MODE_SYMMETRIC)
+    return Xs, ys, apply(stats, X[n:])
+
+
+def _mesh_inputs(seed: int):
+    """The inputs of the phases run at MESH_RANKS ranks (one launch):
+    the float64 dist and ring problem at N_DIST64 (with the ring's
+    probes) and the two-level problem at N_TWO."""
+    import torch
+
+    from gp_ss_ak_torch.parallel import ring
+
+    X, y, Xq = _mesh_problem(seed, N_DIST64, MESH_QUERIES)
+    X2, y2, _ = _mesh_problem(seed + 1, N_TWO)
+    flat = _golden_model("cpu", torch.float64).pack().numpy()
+    Z, Zl = ring.draw_probes(seed, N_DIST64, RING_PROBES, RING_SLQ_PROBES)
+    flats2 = np.stack([flat, np.clip(flat * 1.2, 1e-4, 6.0)])
+    return dict(X=X, y=y, Xq=Xq, flat=flat, Z=Z.numpy(), Zl=Zl.numpy(),
+                X2=X2, y2=y2, flats2=flats2)
+
+
+def _ring64_opts(data):
+    return dict(precond_rank=RING64_RANK, probes=RING_PROBES,
+                slq_probes=RING_SLQ_PROBES, lanczos_iters=32,
+                cg_tol=RING64_CG_TOL, cg_maxiter=2000, Z=data["Z"],
+                Zl=data["Zl"])
+
+
+def mesh_tasks(mesh, data, two=None):
+    """What every rank of a mesh computes on `data` (float64): the dist
+    NLML and gradient at N_DIST64 with its predict, the ring NLML and
+    gradient and the ring predict, and on a TwoLevelMesh `two` the
+    two-level dist and ring evaluations at N_TWO. Returns {name: numpy
+    array}; the K1 launches made under "k1"."""
+    import torch
+
+    from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.ops import pairwise
+
+    model = _golden_model(mesh.device, torch.float64)
+    k, lik = model.kernel, model.likelihood
+    flat = torch.as_tensor(data["flat"], device=mesh.device)
+    out = {}
+    before = pairwise.launches
+    Xl, yl, n, _ = tp.shard_training_data(mesh, torch.as_tensor(data["X"]),
+                                          torch.as_tensor(data["y"]),
+                                          nb=DIST_NB)
+    v, g = tp.make_dist_nlml_and_grad(k, lik, mesh, n, nb=DIST_NB,
+                                      grad_mode="exact")(flat, Xl, yl)
+    out["dist_v"], out["dist_g"] = v.cpu().numpy(), g.cpu().numpy()
+    mu, var = tp.make_dist_predict(k, lik, mesh, n, nb=DIST_NB)(
+        flat, Xl, yl, torch.as_tensor(data["Xq"], device=mesh.device))
+    out["pred_mu"], out["pred_var"] = mu.cpu().numpy(), var.cpu().numpy()
+    v, g, st = tp.make_ring_nlml_and_grad(k, mesh, n, with_stats=True,
+                                          **_ring64_opts(data))(flat, Xl, yl)
+    out["ring_v"], out["ring_g"] = v.cpu().numpy(), g.cpu().numpy()
+    out["ring_stats"] = st.cpu().numpy()
+    # the solve part: alpha and the variance columns by the ring's
+    # whitened CG (make_ring_predict), to convergence
+    mu, var = tp.make_ring_predict(k, mesh, n, tol=RING64_CG_TOL,
+                                   maxiter=2000, precond_rank=RING64_RANK)(
+        flat, Xl, yl, torch.as_tensor(data["Xq"], device=mesh.device))
+    out["ring_mu"], out["ring_var"] = mu.cpu().numpy(), var.cpu().numpy()
+    if two is not None:
+        flats2 = torch.as_tensor(data["flats2"], device=mesh.device)
+        X2l, y2l, n2, _ = tp.shard_training_data(
+            two.rows, torch.as_tensor(data["X2"]),
+            torch.as_tensor(data["y2"]), nb=DIST_NB)
+        v, g = tp.make_two_level_nlml_and_grad(
+            k, lik, two, n2, nb=DIST_NB, grad_mode="exact")(flats2, X2l, y2l)
+        out["two_v"], out["two_g"] = v.cpu().numpy(), g.cpu().numpy()
+        v, g = tp.make_two_level_ring_nlml_and_grad(
+            k, two, n2, **{**_ring64_opts(data), "Z": data["Z"][:n2],
+                           "Zl": data["Zl"][:n2]})(flats2, X2l, y2l)
+        out["two_ring_v"], out["two_ring_g"] = (v.cpu().numpy(),
+                                                g.cpu().numpy())
+    out["k1"] = np.asarray(pairwise.launches - before)
+    return out
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of the MESH_RANKS-rank launch (`--mesh-rank`): gloo on
+    the one card, asked for by name; writes its results beside the
+    inputs."""
+    import torch
+
+    from gp_ss_ak_torch import parallel as tp
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(args.mesh_port),
+                      RANK=str(args.mesh_rank),
+                      WORLD_SIZE=str(args.mesh_world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = tp.make_mesh("cuda", backend="gloo")
+    two = tp.two_level_mesh(rows_per_host=2, device="cuda", backend="gloo")
+    with np.load(os.path.join(args.mesh_io, "in.npz")) as f:
+        data = dict(f)
+    out = mesh_tasks(mesh, data, two)
+    np.savez(os.path.join(args.mesh_io, f"rank{args.mesh_rank}.npz"), **out)
+    return 0
+
+
+def launch_mesh_ranks(data, workdir: str, world: int = None,
+                      timeout: float = MESH_TIMEOUT_S):
+    """Run `world` ranks of this script (`--mesh-rank`) on the one card,
+    gloo between them; every rank is stopped at the first failure or
+    past `timeout` seconds, and a failure raises. Returns the ranks'
+    results in rank order and the launch's wall seconds."""
+    import socket
+
+    world = world or MESH_RANKS
+    os.makedirs(workdir, exist_ok=True)
+    np.savez(os.path.join(workdir, "in.npz"), **data)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), "--mesh-world", str(world), "--mesh-port", str(port),
+             "--mesh-io", workdir], stdout=log, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT), log))
+    failed = None
+    while failed is None and any(p.poll() is None for p, _ in procs):
+        failed = next((r for r, (p, _) in enumerate(procs)
+                       if p.poll() not in (None, 0)), None)
+        if time.perf_counter() - t0 > timeout:
+            failed = "timeout"
+        time.sleep(0.1)
+    if failed is None:
+        failed = next((r for r, (p, _) in enumerate(procs)
+                       if p.returncode != 0), None)
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.close()
+    wall = time.perf_counter() - t0
+    if failed is not None:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                print(f"--- rank {r} ---\n{f.read()[-4000:]}")
+        raise AssertionError(f"mesh ranks failed ({failed})")
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
+            out.append(dict(f))
+    return out, wall
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    b = np.asarray(b)
+    return float(np.max(np.abs(np.asarray(a) - b)) / np.max(np.abs(b)))
+
+
+def phase_mesh64(device, seed: int):
+    """Phases 25-27 in float64 at N_DIST64: the dist NLML and gradient on
+    a mesh of one rank (NCCL) against the dense engine, its predict
+    against the dense Predictor; the ring's against the dense solve; then
+    the same on MESH_RANKS ranks sharing the card (gloo, host-staged),
+    held to one rank, and the two-level meshes (2 chains x 2 rows) held
+    to each chain alone. Returns the K1 launches of the counted runs (one
+    rank's, then every rank of the launch summed)."""
+    import torch
+
+    from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.optim import make_value_and_grad
+    from gp_ss_ak_torch.serve import Predictor
+
+    data = _mesh_inputs(seed)
+    mesh = tp.make_mesh(device)
+    print(f"mesh: one rank over {mesh.backend} on {mesh.device}")
+    t0 = time.perf_counter()
+    one = mesh_tasks(mesh, data)
+    wall1 = time.perf_counter() - t0
+    k1 = int(one["k1"])
+    model = _golden_model(device, torch.float64)
+    vd, gd = make_value_and_grad(model, data["X"], data["y"])(
+        data["flat"])
+    e_v = abs(float(one["dist_v"]) - vd) / abs(vd)
+    e_g = _rel(one["dist_g"], gd)
+    mu_d, var_d = Predictor(model, data["X"], data["y"],
+                            precompute_inverse=False)(data["Xq"])
+    e_mu, e_var = _rel(one["pred_mu"], mu_d), _rel(one["pred_var"], var_d)
+    e_a = max(_rel(one["ring_mu"], mu_d), _rel(one["ring_var"], var_d))
+    print(f"dist f64 N={N_DIST64} P=1 ({mesh.backend}): value "
+          f"{float(one['dist_v'])!r} "
+          f"vs dense {vd!r}: rel {e_v:.3e} (tol {DIST64_VAL_RTOL}); "
+          f"gradient {e_g:.3e} of its largest entry (tol "
+          f"{DIST64_GRAD_RTOL}); predict mu {e_mu:.3e}, var {e_var:.3e} "
+          f"(tol {DIST64_PRED_RTOL}); ring predict (alpha and the "
+          f"variance solves) {e_a:.3e} (tol {RING_ALPHA_RTOL}); ring NLML's "
+          f"CG {int(one['ring_stats'][0])} "
+          f"iterations; {wall1:.2f} s; K1 launches {k1}")
+    _check(e_v <= DIST64_VAL_RTOL, "dist value disagrees with dense f64")
+    _check(e_g <= DIST64_GRAD_RTOL, "dist gradient disagrees with dense f64")
+    _check(max(e_mu, e_var) <= DIST64_PRED_RTOL,
+           "dist predict disagrees with the dense Predictor")
+    _check(e_a <= RING_ALPHA_RTOL, "ring predict disagrees with the dense "
+           "Predictor")
+
+    ranks, wall4 = launch_mesh_ranks(data, WORK + "_mesh")
+    k1_ranks = sum(int(r["k1"]) for r in ranks)
+    worst = {}
+    for r in ranks:
+        for key, tol in (("dist_v", DIST_P4_RTOL), ("dist_g", DIST_P4_RTOL),
+                         ("pred_mu", DIST_P4_RTOL), ("pred_var", DIST_P4_RTOL),
+                         ("ring_v", RING_P4_RTOL), ("ring_g", RING_P4_GRAD),
+                         ("ring_mu", RING_P4_RTOL), ("ring_var", RING_P4_RTOL)):
+            e = _rel(r[key], one[key])
+            worst[key] = max(worst.get(key, 0.0), e)
+            _check(e <= tol, f"{key} on {MESH_RANKS} ranks disagrees with "
+                   f"one rank: {e:.3e} > {tol}")
+    print(f"mesh of {MESH_RANKS} ranks on one card (gloo, host-staged; "
+          f"no NVLink): against one rank, worst rel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; ring CG {int(ranks[0]['ring_stats'][0])} iterations vs "
+          f"{int(one['ring_stats'][0])}; launch wall {wall4:.2f} s (4 "
+          f"processes, start-up included); K1 launches, all ranks "
+          f"{k1_ranks}")
+    # the two-level meshes: each chain against itself alone on one rank
+    X2l, y2l, n2, _ = tp.shard_training_data(
+        mesh, torch.as_tensor(data["X2"]), torch.as_tensor(data["y2"]),
+        nb=DIST_NB)
+    opts = {**_ring64_opts(data), "Z": data["Z"][:n2], "Zl": data["Zl"][:n2]}
+    f1 = tp.make_dist_nlml_and_grad(model.kernel, model.likelihood, mesh, n2,
+                                    nb=DIST_NB, grad_mode="exact")
+    r1 = tp.make_ring_nlml_and_grad(model.kernel, mesh, n2, **opts)
+    e2 = 0.0
+    for c in range(2):
+        fl = torch.as_tensor(data["flats2"][c], device=device)
+        for (v, g), key in ((f1(fl, X2l, y2l), "two"),
+                            (r1(fl, X2l, y2l), "two_ring")):
+            for r in ranks:
+                e = max(abs(float(r[key + "_v"][c]) - float(v)) / abs(float(v)),
+                        _rel(r[key + "_g"][c], g.cpu().numpy()))
+                e2 = max(e2, e)
+    print(f"two-level (2 chains x 2 rows, gloo): each chain against itself "
+          f"alone on one rank, worst rel {e2:.3e} (tol {TWO_LEVEL_RTOL})")
+    _check(e2 <= TWO_LEVEL_RTOL, "two-level chains disagree with one rank")
+    return k1, k1_ranks
+
+
+def phase_mesh_k1_shapes(device, seed: int):
+    """K1's cross entry at the mesh engines' shapes: the dist panel
+    (N_TRAIN x N_TRAIN, one rank) and the ring tile (N_ITER_TRAIN x
+    TILE_CHUNK), against its plain version on independent points
+    (float64 and float32, phase_k1) and on the coincident points the
+    engines give it (the columns a subset of the rows; float32 against
+    the plain float64 Gram), then timed in float32 beside its bound."""
+    import torch
+
+    from gp_ss_ak_torch.ops import pairwise
+    from gp_ss_ak_torch.parallel.ring import TILE_CHUNK
+
+    shapes = ((N_TRAIN, N_TRAIN, "dist panel"),
+              (N_ITER_TRAIN, TILE_CHUNK, "ring tile"))
+    report = phase_k1(device, seed, cases=[(n, m, 3) for n, m, _ in shapes],
+                      time_shapes=False)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(seed + 29)
+    s_t, b_t = (torch.tensor(v, device=device) for v in (SIGMA, BIAS))
+    tol = TOL_F32 * (SIGMA * SIGMA + BIAS)
+    for n, m, what in shapes:
+        X = 3.0 * torch.rand(n, 3, generator=g, device=device) - 1.5
+        Y = X[:m].contiguous()
+        K = pairwise.expans_bias_gram(X, s_t, b_t, None, Y)
+        ref = pairwise.expans_bias_gram_plain(X.double(), s_t.double(),
+                                              b_t.double(), None, Y.double())
+        err = (K.double() - ref).abs().max().item()
+        del K, ref
+        torch.cuda.empty_cache()
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        ms = time_ms(lambda: pairwise.expans_bias_gram(X, s_t, b_t, None, Y),
+                     iters=10)
+        plain_ms = time_ms(lambda: pairwise.expans_bias_gram_plain(
+            X, s_t, b_t, None, Y), warmup=1, iters=3)
+        b_ms, b_by = bound(gram_work(n, m, 3), **card_rates())
+        print(f"K1 cross {n}x{m} f32 ({what}, coincident points): "
+              f"|kernel-plain64| {err:.3e} (tol {tol:.1e}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"(set by {b_by}); kernel at {b_ms / ms:.3f} of it; library "
+              f"call: none")
+        _check(err <= tol, f"K1 cross disagrees at the {what}")
+        del X, Y
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_dist32(device, seed: int, train: str, test: str, model_path: str,
+                 counts):
+    """Phase 28 in float32 at N_TRAIN (the dense route's width) on a mesh
+    of one rank (NCCL): one evaluation with the exact gradient and one
+    with the Hutchinson estimate against the dense engine, K1 launches
+    counted per evaluation, the exact one's profiled split; then
+    `train --engine dist -# DIST_TRAIN_ITERS` and `test` on its model.
+    Returns the K1 launches of the counted runs."""
+    import torch
+
+    from gp_ss_ak_torch import cli
+    from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.optim import make_value_and_grad
+    from gp_ss_ak_torch.parallel import nlml as dist_nlml
+
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    mesh = tp.make_mesh(device)
+    Xl, yl, n, _ = tp.shard_training_data(
+        mesh, torch.as_tensor(Xtrs, dtype=torch.float32),
+        torch.as_tensor(ytrs, dtype=torch.float32), nb=DIST_NB)
+    flat = model.pack().detach()
+    vd, gd = make_value_and_grad(model, Xtrs, ytrs)(
+        flat.cpu().numpy().astype(np.float64))
+    k1 = 0
+    for mode in ("exact", "hutchinson"):
+        f = tp.make_dist_nlml_and_grad(model.kernel, model.likelihood, mesh,
+                                       n, nb=DIST_NB, grad_mode=mode)
+        counts()
+        v, g = f(flat, Xl, yl)
+        used = counts()
+        k1 += used
+        _check(used == 2, f"dist {mode} evaluation made {used} K1 launches, "
+               "not 2 (the panel, and its rebuild for the contraction)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        v, g = f(flat, Xl, yl)
+        v = float(v)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        e_v = abs(v - vd) / max(abs(vd), n)
+        e_g = _rel(g.cpu().numpy(), gd)
+        print(f"dist f32 N={n} P=1 grad_mode={mode}: value {v!r} vs dense "
+              f"{vd!r} (rel to max(|v|, n) {e_v:.3e}, tol "
+              f"{DIST_F32_VAL_REL}); gradient {e_g:.3e} of the dense "
+              f"gradient's largest entry; {ms:.3f} ms (host clock, one "
+              f"evaluation), peak {peak:.3f} GiB; K1 launches {used}")
+        _check(e_v <= DIST_F32_VAL_REL, f"dist {mode} value disagrees")
+        if mode == "exact":
+            _check(e_g <= DIST_F32_GRAD_REL, "dist exact gradient "
+                   "disagrees with the dense engine")
+            labels = {"dist.block_cholesky": "block Cholesky",
+                      "dist.solves": "alpha + Q solves",
+                      "dist.contraction": "contraction (K1 rebuild + "
+                                          "backward)",
+                      "kernel:gram_kernel": "K1 forward",
+                      "FusedExpansBiasCross.backward": "K1 cross backward"}
+            _, pwall, split, total, top = profile_split(
+                lambda: f(flat, Xl, yl), labels)
+            print(f"dist exact evaluation at N={n} f32, torch.profiler "
+                  f"device time: "
+                  f"{_split_text(split, labels, pwall, total, top)}")
+        del f
+        torch.cuda.empty_cache()
+
+    workdir = WORK + "_dist"
+    os.makedirs(workdir, exist_ok=True)
+    trained = os.path.join(workdir, "trained_dist")
+    out = io.StringIO()
+    counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["-v", "1", "train", "--engine", "dist", "-#",
+                       str(DIST_TRAIN_ITERS), train, trained])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print("cli train --engine dist:", " | ".join(text.strip().splitlines()),
+          f"(rc {rc}, {wall:.3f} s wall)")
+    _check(rc == 0, f"train --engine dist returned {rc}")
+    m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals", text)
+    _check(m is not None and float(m.group(2)) < float(m.group(1)),
+           "train --engine dist: -logL did not decrease")
+    evals = int(m.group(4))
+    chunks = -(-n // dist_nlml.PREDICT_CHUNK)
+    want = 2 * evals + 1 + chunks
+    used = counts()
+    k1 += used
+    _check(used == want, f"train --engine dist: expected {want} K1 launches "
+           f"(2 an evaluation, the panel and {chunks} cross chunks "
+           f"of its training-set mean), saw {used}")
+    counts()
+    phase_main(train, test, trained)
+    k1 += counts()
+    return k1
+
+
+@contextlib.contextmanager
+def _ring_tf32():
+    """The ring's matrix products in TF32: parallel/ring.py's
+    full-float32 switch replaced by its opposite for the block."""
+    import torch
+
+    from gp_ss_ak_torch.parallel import ring
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = (torch.get_float32_matmul_precision(),
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev[0])
+            torch.backends.cuda.matmul.allow_tf32 = prev[1]
+
+    full, ring.highest_precision = ring.highest_precision, tf32
+    try:
+        yield
+    finally:
+        ring.highest_precision = full
+
+
+def phase_ring32(device, seed: int, itrain: str, itest: str, imodel: str,
+                 counts):
+    """Phases 29-30 in float32 at N_ITER_TRAIN on a mesh of one rank: one
+    `make_ring_nlml_and_grad(with_stats=True)` evaluation (CG iterations,
+    residual, time, peak memory, profiled split), `fit_ring` for
+    RING_FIT_ITERS iterations, and `make_ring_predict` at
+    RING_PREDICT_QUERIES queries against the same predict in float64 and
+    IterativePredictor on the same model (phase 10's tolerances, the
+    variances' against the prior variance), with a TF32 control the
+    variance gate must reject. Returns the K1 launches."""
+    import torch
+
+    from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.inference.iterative import auto_precond_rank
+    from gp_ss_ak_torch.parallel import ring
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    model, _, Xtrs, ytrs, Xts, _ = _load_case(device, torch.float32, itrain,
+                                              itest, imodel)
+    mesh = tp.make_mesh(device)
+    Xl, yl, n, _ = tp.shard_training_data(
+        mesh, torch.as_tensor(Xtrs, dtype=torch.float32),
+        torch.as_tensor(ytrs, dtype=torch.float32), nb=DIST_NB)
+    flat = model.pack().detach()
+    f = tp.make_ring_nlml_and_grad(model.kernel, mesh, n, with_stats=True,
+                                   probe_seed=seed)
+    counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v, g, st = f(flat, Xl, yl)
+    v = float(v)
+    wall = time.perf_counter() - t0
+    k1 = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"ring f32 N={n} P=1: value {v!r}, CG {int(st[0])} iterations to "
+          f"relative residual {float(st[1]):.3e} (tol 1e-4, precond rank "
+          f"{auto_precond_rank(n)}); {wall:.3f} s (host clock), "
+          f"peak {peak:.3f} GiB; K1 launches {k1}")
+    _check(np.isfinite(v) and bool(torch.isfinite(g).all()),
+           "ring evaluation not finite")
+    labels = {"ring.pivoted_cholesky": "pivoted Cholesky",
+              "ring.cg": "whitened CG", "ring.slq": "SLQ",
+              "ring.surrogate": "surrogate backward",
+              "kernel:gram_kernel": "K1 forward",
+              "FusedExpansBiasCross.backward": "K1 cross backward"}
+    _, pwall, split, total, top = profile_split(lambda: f(flat, Xl, yl),
+                                                labels)
+    print(f"ring evaluation at N={n} f32, torch.profiler device time: "
+          f"{_split_text(split, labels, pwall, total, top)}")
+    del f
+    torch.cuda.empty_cache()
+
+    counts()
+    t0 = time.perf_counter()
+    fitted, res = tp.fit_ring(model, Xtrs, ytrs, mesh, iters=RING_FIT_ITERS,
+                              seed=seed)
+    wall = time.perf_counter() - t0
+    k1 += counts()
+    print(f"fit_ring N={n} P=1, {RING_FIT_ITERS} iterations: -logL "
+          f"{res.trace[0]:.6f} -> {res.fun:.6f}, {res.n_iters} iterations, "
+          f"{res.n_evals} evaluations, stop {res.stop_reason}, sn2 "
+          f"{res.x[-1]:.4g}; {wall:.3f} s")
+    _check(np.isfinite(res.fun) and res.fun <= res.trace[0],
+           "fit_ring did not improve")
+
+    q = Xts[:RING_PREDICT_QUERIES]
+    qt = torch.as_tensor(q, dtype=torch.float32, device=device)
+    counts()
+    t0 = time.perf_counter()
+    mu_r, var_r = (t.cpu().numpy() for t in tp.make_ring_predict(
+        model.kernel, mesh, n)(flat, Xl, yl, qt))
+    wall = time.perf_counter() - t0
+    k1 += counts()
+    mu_i, var_i = IterativePredictor(model, Xtrs, ytrs)(q)
+    k1 += counts()
+    # the control: the same predict with the tile products in TF32 (its
+    # launches not counted)
+    with _ring_tf32():
+        mu_c, var_c = (t.cpu().numpy() for t in tp.make_ring_predict(
+            model.kernel, mesh, n)(flat, Xl, yl, qt))
+    counts()
+    # the reference: the same ring predict in float64, CG to 1e-10
+    m64 = model.to(torch.float64, device)
+    t0 = time.perf_counter()
+    mu_f, var_f = (t.cpu().numpy() for t in tp.make_ring_predict(
+        m64.kernel, mesh, n, tol=1e-10, maxiter=2000)(
+        m64.pack(), Xl.double(), yl.double(), qt.double()))
+    wall64 = time.perf_counter() - t0
+    k1 += counts()
+    _, sigma, bias, sn2 = ring._hypers(m64.kernel, m64.pack())
+    prior = float(sigma * sigma + bias + sn2)
+    tol_mu = ITER_MEAN_TOL * float(np.std(ytrs))
+
+    def diff(mu, var, mu_ref, var_ref):
+        """max |mu diff|, max |var diff| / prior, max var rel diff"""
+        dv = np.abs(var - var_ref)
+        return (float(np.max(np.abs(mu - mu_ref))), float(np.max(dv)) / prior,
+                float(np.max(dv / var_ref)))
+
+    readings = {"ring float32 against float64": diff(mu_r, var_r, mu_f, var_f),
+                "ring float32 against IterativePredictor": diff(
+                    mu_r, var_r, mu_i, var_i),
+                "IterativePredictor against float64": diff(mu_i, var_i, mu_f,
+                                                           var_f),
+                "TF32 control against float64": diff(mu_c, var_c, mu_f,
+                                                     var_f)}
+    print(f"ring predict N={n} P=1, {q.shape[0]} queries: {wall:.3f} s "
+          f"(float64 reference {wall64:.3f} s); prior variance {prior:.6g} "
+          f"(sn2 {float(sn2):.4g}), float64 variances {float(var_f.min()):.4g}"
+          f"..{float(var_f.max()):.4g}; max |mu diff| (tol {tol_mu:.3e}), "
+          f"max |var diff| / prior (tol {ITER_VAR_RTOL}), max var rel diff: "
+          + "; ".join(f"{k} {a:.3e}, {b:.3e}, {c:.3e}"
+                      for k, (a, b, c) in readings.items()))
+    for key in ("ring float32 against float64",
+                "ring float32 against IterativePredictor"):
+        e_mu, e_var, _ = readings[key]
+        _check(e_mu <= tol_mu, f"ring predict means: {key} {e_mu:.3e}")
+        _check(e_var <= ITER_VAR_RTOL,
+               f"ring predict variances: {key} {e_var:.3e}")
+    _check(readings["TF32 control against float64"][1] > ITER_VAR_RTOL,
+           "the ring predict's variance gate passes its TF32 control")
+    torch.cuda.empty_cache()
+    return k1
+
+
+def run_parallel(device, seed: int, counts, dense_case, icase):
+    """The mesh phases (25-30). Returns the K1 launches of the counted
+    runs, every rank's summed, and the report of K1's cross entry at the
+    mesh engines' shapes."""
+    t0 = time.perf_counter()
+    k1, k1_ranks = phase_mesh64(device, seed)
+    report = phase_mesh_k1_shapes(device, seed)
+    k1 += phase_dist32(device, seed, *dense_case, counts)
+    k1 += phase_ring32(device, seed, *icase, counts)
+    print(f"parallel phases done in {time.perf_counter() - t0:.1f} s; K1 "
+          f"launches {k1} on one rank, {k1_ranks} on {MESH_RANKS}")
+    return k1 + k1_ranks, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("k3", "warped", "batched",
-                                       "sparse"),
+                                       "sparse", "parallel"),
                     help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
-                         "sparse: phases 1, 2 and 19-24. None prints a "
-                         "result")
+                         "sparse: phases 1, 2 and 19-24; parallel: phases "
+                         "1, 2 and 25-30. None prints a result")
+    # one rank of the phases' multi-rank launch (launch_mesh_ranks)
+    for flag in ("--mesh-rank", "--mesh-world", "--mesh-port"):
+        ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-io", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2830,6 +3470,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
     from gp_ss_ak_torch.ops import matvec, pairwise
 
     t_start = time.perf_counter()
@@ -2852,6 +3494,21 @@ def main(argv=None) -> int:
     def counts_k1():
         """K1's launches on one point set and on batches."""
         return pairwise.launches, pairwise.batched_launches
+
+    def take_k1():
+        """K1's launches since the last call (or zero()); then zero."""
+        k1 = counts()[0]
+        zero()
+        return k1
+
+    if args.only == "parallel":
+        dense = write_case(WORK, args.seed, N_TRAIN, N_TEST)
+        icase = write_case(WORK + "_iterative", args.seed, N_ITER_TRAIN,
+                           N_ITER_TEST)
+        run_parallel(device, args.seed, take_k1, dense, icase)
+        print(f"parallel phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     if args.only == "batched":
         train, test, _ = write_case(WORK, args.seed, N_TRAIN, N_TEST)
@@ -2983,6 +3640,17 @@ def main(argv=None) -> int:
                                 (itrain, itest, imodel))
     k1_launches += k1_s
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_cross["max_abs_err"])
+
+    # counted runs 13-16, the mesh engines: dist and ring in float64 on
+    # one rank and on MESH_RANKS ranks (their launches summed), the two
+    # levels, dist in float32 with `train --engine dist`, the ring at
+    # N_ITER_TRAIN
+    zero()
+    k1_p, k1_mesh = run_parallel(device, args.seed, take_k1,
+                                 (train, test, model_path),
+                                 (itrain, itest, imodel))
+    k1_launches += k1_p
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_mesh["max_abs_err"])
 
     print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -20,8 +20,6 @@ hyperposterior path (accept-rate alone says nothing about mixing):
 from __future__ import annotations
 
 import numpy as np
-from scipy.special import ndtri
-from scipy.stats import rankdata
 
 
 def _rank_normalize(theta: np.ndarray) -> np.ndarray:
@@ -32,6 +30,11 @@ def _rank_normalize(theta: np.ndarray) -> np.ndarray:
     within-tie trend and depress ESS); the fractional offset
     (r - 3/8)/(S + 1/4) is the Blom estimator Vehtari (2021) §3 uses.
     """
+    # imported here: scipy.stats takes seconds to import, and every
+    # process that imports the port's bayes/ would pay for it
+    from scipy.special import ndtri
+    from scipy.stats import rankdata
+
     c, s, p = theta.shape
     flat = theta.reshape(c * s, p)
     n = c * s

@@ -59,22 +59,26 @@ class GeneratorDraws:
     """The random numbers of the chains from one torch.Generator: each
     call is a fresh draw for every chain. The arguments after the first
     name the draw ("accept"; "direction", depth; "leaf", depth, i) for
-    replays, and are ignored here."""
+    replays, and are ignored here.
+
+    Chains split over ranks (bayes/api.py, `mesh=`): every rank draws the
+    whole batch's numbers and keeps its own chains' `rows`."""
 
     def __init__(self, generator: torch.Generator, chains: int, dim: int,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device, rows: slice = slice(None)):
         self.generator = generator
         self.shape = (chains, dim)
         self.dtype = dtype
         self.device = device
+        self.rows = rows
 
     def momentum(self) -> torch.Tensor:
         return torch.randn(self.shape, generator=self.generator,
-                           dtype=self.dtype, device=self.device)
+                           dtype=self.dtype, device=self.device)[self.rows]
 
     def uniform(self, *name) -> torch.Tensor:
         return torch.rand(self.shape[:1], generator=self.generator,
-                          dtype=self.dtype, device=self.device)
+                          dtype=self.dtype, device=self.device)[self.rows]
 
 
 def log_post_grad_fn(log_post: Callable, counts: Optional[dict] = None):
@@ -167,6 +171,57 @@ def _hmc_transition(lpg, z, lp, g, eps, n_leapfrog: int, inv_mass, draws):
 
 
 # ---------------------------------------------------------------------------
+# full-matrix mass (dense preconditioning)
+# ---------------------------------------------------------------------------
+#
+# A diagonal mass cannot precondition a CORRELATED posterior: the
+# flagship hyperposterior at large N is a tight ellipse with strong
+# angle/width correlations, along whose stiff directions diagonal-mass
+# HMC random-walks. With M^-1 = cov(posterior) the transformed target is
+# about isotropic (Stan's dense_e). No sampler entry point uses it yet,
+# as in the JAX package (gp_ss_ak_tpu/bayes/hmc.py:57-110).
+
+def _mass_apply(Minv, r):
+    """M^-1 r for r (C, p), with Minv (p, p) shared or (C, p, p)."""
+    return torch.einsum("...ij,...j->...i", Minv, r)
+
+
+def _leapfrog_full(lpg, z, r, g, eps, Minv):
+    """One leapfrog step under a dense mass, g = grad log p(z) carried:
+    one evaluation, at the new position."""
+    r = r + 0.5 * eps[:, None] * g
+    z = z + eps[:, None] * _mass_apply(Minv, r)
+    lp, g = lpg(z)
+    r = r + 0.5 * eps[:, None] * g
+    return z, r, lp, g
+
+
+def _kinetic_full(r, Minv):
+    return 0.5 * torch.sum(r * _mass_apply(Minv, r), dim=-1)
+
+
+def _hmc_transition_full(lpg, z, lp, g, eps, n_leapfrog: int, mass_chol,
+                         Minv, draws):
+    """One HMC transition of every chain under a dense mass matrix
+    M = L L^T (`mass_chol` = L, `Minv` = M^-1, (p, p) or (C, p, p)):
+    momenta r = L xi, kinetic energy r^T M^-1 r / 2, positions move along
+    M^-1 r. Orientation is Stan's: M^-1 approximates the posterior
+    COVARIANCE, so eps ~ O(1). (lp, g) is carried as in
+    `_hmc_transition`: L evaluations. Returns (z, lp, g, accept_prob)."""
+    r0 = _mass_apply(mass_chol, draws.momentum())
+    H0 = -lp + _kinetic_full(r0, Minv)
+    z1, r1, lp1, g1 = z, r0, lp, g
+    for _ in range(n_leapfrog):
+        z1, r1, lp1, g1 = _leapfrog_full(lpg, z1, r1, g1, eps, Minv)
+    dH = H0 - (-lp1 + _kinetic_full(r1, Minv))
+    accept_prob = torch.clamp_max(torch.exp(torch.clamp_max(dH, 50.0)), 1.0)
+    accept_prob = torch.where(torch.isnan(accept_prob), 0.0, accept_prob)
+    accept = draws.uniform("accept") < accept_prob
+    return (_pick(accept, z1, z), _pick(accept, lp1, lp),
+            _pick(accept, g1, g), accept_prob)
+
+
+# ---------------------------------------------------------------------------
 # iterative NUTS
 # ---------------------------------------------------------------------------
 
@@ -207,12 +262,20 @@ def _uturn(z_a, r_a, z_b, r_b, inv_mass):
         torch.sum(dz * (inv_mass * r_b), dim=-1) < 0)
 
 
+def _any(flag) -> bool:
+    return bool(flag.any())
+
+
 def _build_subtree(lpg, start: _Point, live, depth_max: int, depth: int,
-                   eps, H0, inv_mass, draws) -> _TreeState:
+                   eps, H0, inv_mass, draws, any_chain=_any) -> _TreeState:
     """Run up to 2^depth leapfrogs from `start` in the direction of eps
     (sign folded into eps) for the chains in `live`, with iterative
     U-turn checks via the checkpoint stack; a chain leaves when it
-    turns or diverges, and the loop ends when no chain is left."""
+    turns or diverges, and the loop ends when no chain is left.
+    `any_chain(flag)` says whether any chain holds a flag: with chains
+    split over ranks (bayes/api.py, `mesh=`), any chain of the whole
+    batch, the same answer on every rank, so each chain steps exactly as
+    in the undivided batch."""
     C, dim = start.z.shape
     fwd = eps > 0
     zc = start.z.new_zeros((C, depth_max + 1, dim))   # checkpoint positions
@@ -224,7 +287,7 @@ def _build_subtree(lpg, start: _Point, live, depth_max: int, depth: int,
                     n_leaves=zero)
     cur = start
     for i in range(1 << depth):
-        if i > 0 and not bool(live.any()):
+        if i > 0 and not any_chain(live):
             break
         leaf = _Point(*_leapfrog(lpg, cur.z, cur.r, cur.g, eps, inv_mass))
         H = -leaf.lp + _kinetic(leaf.r, inv_mass)
@@ -268,10 +331,10 @@ def _build_subtree(lpg, start: _Point, live, depth_max: int, depth: int,
 
 
 def _nuts_transition(lpg, z, lp, g, eps, inv_mass, draws,
-                     max_depth: int = 8):
+                     max_depth: int = 8, any_chain=_any):
     """One NUTS transition of every chain from (z, lp, g); eps (C,),
     inv_mass (C, p). Returns (z, lp, g, accept statistic, leapfrog
-    leaves)."""
+    leaves). `any_chain` as in `_build_subtree`."""
     r0 = draws.momentum() / torch.sqrt(inv_mass)
     H0 = -lp + _kinetic(r0, inv_mass)
     here = _Point(z, r0, lp, g)
@@ -283,13 +346,13 @@ def _nuts_transition(lpg, z, lp, g, eps, inv_mass, draws,
     n_leaves = torch.ones_like(lp)
     for depth in range(max_depth):
         active = ~turning & ~diverging
-        if not bool(active.any()):
+        if not any_chain(active):
             break
         go_fwd = draws.uniform("direction", depth) < 0.5
         start = _select(go_fwd, plus, minus)
         eps_signed = torch.where(go_fwd, eps, -eps)
         st = _build_subtree(lpg, start, active, max_depth, depth,
-                            eps_signed, H0, inv_mass, draws)
+                            eps_signed, H0, inv_mass, draws, any_chain)
 
         # biased progressive sampling: take new subtree's proposal with
         # prob min(1, W_new / W_old)
@@ -315,13 +378,14 @@ def _nuts_transition(lpg, z, lp, g, eps, inv_mass, draws,
 
 def _sample(step, log_post: Callable, z0: torch.Tensor, generator,
             n_samples: int, n_warmup: int, init_step_size: float,
-            stats: Optional[dict]):
+            stats: Optional[dict], draws=None):
     single = z0.dim() == 1
     z = z0[None] if single else z0
     C, dim = z.shape
-    if generator is None:
-        generator = torch.Generator(device=z.device).manual_seed(0)
-    draws = GeneratorDraws(generator, C, dim, z.dtype, z.device)
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator(device=z.device).manual_seed(0)
+        draws = GeneratorDraws(generator, C, dim, z.dtype, z.device)
     counts = {} if stats is None else stats
     counts["evals"] = 0
     lpg = log_post_grad_fn(log_post, counts)
@@ -367,31 +431,34 @@ def _sample(step, log_post: Callable, z0: torch.Tensor, generator,
 def hmc_sample(log_post: Callable, z0: torch.Tensor, generator=None,
                n_samples: int = 500, n_warmup: int = 300,
                init_step_size: float = 0.1, n_leapfrog: int = 16,
-               stats: Optional[dict] = None):
+               stats: Optional[dict] = None, draws=None):
     """HMC chains: log_post maps z (C, p) to (C,) values; z0 is (C, p)
     (or (p,) for one chain); `generator` a torch.Generator on z0's
     device. Returns (samples (C, n_samples, p), accept_probs
     (C, n_samples)). A dict passed as `stats` receives "evals" (batched
     evaluations of log_post), "leaves" (leapfrogs per transition,
-    (C, n_warmup + n_samples)), "step_size" and "inv_mass"."""
+    (C, n_warmup + n_samples)), "step_size" and "inv_mass". `draws` (a
+    GeneratorDraws) replaces the generator's."""
 
     def step(lpg, z, lp, g, eps, inv_mass, draws):
         return _hmc_transition(lpg, z, lp, g, eps, n_leapfrog, inv_mass,
                                draws)
 
     return _sample(step, log_post, z0, generator, n_samples, n_warmup,
-                   init_step_size, stats)
+                   init_step_size, stats, draws)
 
 
 def nuts_sample(log_post: Callable, z0: torch.Tensor, generator=None,
                 n_samples: int = 500, n_warmup: int = 300,
                 init_step_size: float = 0.1, max_depth: int = 8,
-                stats: Optional[dict] = None):
-    """NUTS chains, with the arguments and results of `hmc_sample`."""
+                stats: Optional[dict] = None, draws=None,
+                any_chain=_any):
+    """NUTS chains, with the arguments and results of `hmc_sample`;
+    `any_chain` as in `_build_subtree`."""
 
     def step(lpg, z, lp, g, eps, inv_mass, draws):
         return _nuts_transition(lpg, z, lp, g, eps, inv_mass, draws,
-                                max_depth)
+                                max_depth, any_chain)
 
     return _sample(step, log_post, z0, generator, n_samples, n_warmup,
-                   init_step_size, stats)
+                   init_step_size, stats, draws)

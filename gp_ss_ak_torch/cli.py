@@ -4,7 +4,8 @@ Usage (gp_ss_ak.cpp:14-63, 511-557; same flags as gp_ss_ak_tpu.cli):
 
   python -m gp_ss_ak_torch [-v N] [-pm N] train [-k NAME]... [-o OPT]
          [-# ITERS] [-kn 0|1] [-mf NAME] [-lf NAME] [--init-params CSV]
-         [--init-lik SN2] [--engine auto|dense|iterative] [--float64]
+         [--init-lik SN2] [--engine auto|dense|iterative|dist|ring]
+         [--float64]
          [--device DEV] TRAIN_FILE [MODEL_NAME]
 
   python -m gp_ss_ak_torch [-v N] [-pm N] test [--no-plot] [--float64]
@@ -40,8 +41,15 @@ unless --no-plot, the Observed-vs-Estimated plot.
 (optim/batched_lbfgs.py, the counterpart of the JAX package's whole-fit
 device optimizer optim/jax_lbfgs.py).
 
-Not ported (exit 1, naming the module): the mesh engines
-(`--engine dist|ring`, parallel/) and the segmented evaluator
+`train --engine dist|ring` fits over a mesh of ranks (parallel/): the
+row-split exact NLML (`fit_distributed`) or the ring's matrix-free one
+(`fit_ring`). A plain process is a mesh of one rank (NCCL on the card,
+gloo with `--device cpu`); under `torchrun --nproc_per_node P` the mesh
+has P ranks and only rank 0 prints and writes files. The training-set
+mean comes from the same engine (`_training_mean_mesh`), where the JAX
+CLI predicts densely.
+
+Not ported (exit 1, naming the module): the segmented evaluator
 (`--segmented`, optim/segmented.py).
 """
 
@@ -107,7 +115,9 @@ def _build_parser() -> argparse.ArgumentParser:
                          "matrix-free engine (float32; exact Cholesky, "
                          "GEMM-backed or streamed by N); 'auto' "
                          f"(default) iterative past N={DENSE_MAX_N} on a "
-                         "GPU. 'dist' and 'ring' are not ported")
+                         "GPU; 'dist' the row-split exact engine and "
+                         "'ring' the ring's matrix-free one over every "
+                         "rank (parallel/)")
     tr.add_argument("--segmented", action="store_true",
                     help="not ported (optim/segmented.py)")
     tr.add_argument("--float64", action="store_true",
@@ -217,20 +227,26 @@ def cmd_train(args) -> int:
         wlik = WarpedGaussian(family=family,
                               n_triplets=int(parts[2]) if len(parts) > 2
                               else 1)
-    if args.engine in ("dist", "ring"):
-        return _not_ported(f"--engine {args.engine} (the mesh engines, "
-                           "parallel/)")
     if args.segmented:
         return _not_ported("--segmented (optim/segmented.py)")
     device = _device(args)
     if device is None:
         return 1
+    mesh = None
+    if args.engine in ("dist", "ring"):
+        from gp_ss_ak_torch.parallel import make_mesh
+
+        mesh = make_mesh(device)
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     dtype = torch.float64 if args.float64 else torch.float32
     X, y = read_data(args.train_file)
     Xs, ys, stats = prepare(X, y, args.prep)
-    stats.save(args.model_name + "_Statistics.txt")
+    if lead:
+        stats.save(args.model_name + "_Statistics.txt")
     if args.verbose > 0:
-        print(f"Read {X.shape[0]} points, {X.shape[1]} features")
+        say(f"Read {X.shape[0]} points, {X.shape[1]} features")
 
     names = args.kernel or ["ExpAns"]
     model = default_model(input_dim=X.shape[1], kernel_names=names,
@@ -259,37 +275,90 @@ def cmd_train(args) -> int:
                 [args.init_lik], dtype=dtype, device=device))
 
     if args.verbose > 0:
-        print(f"Optimizing {model.n_params} hyperparameters with "
-              f"{args.optimiser} ({args.iters} iters)")
+        say(f"Optimizing {model.n_params} hyperparameters with "
+            f"{args.optimiser} ({args.iters} iters)")
     if args.float64 and args.engine == "iterative":
         print("Warning: --float64 is ignored by the iterative engine "
               "(matrix-free CG/SLQ runs in float32)", file=sys.stderr)
-    logger = FitLogger(verbose=max(0, args.verbose - 1),
-                       path=args.model_name + "_metrics.json")
-    fitted, res = fit(model, Xs, ys, optimizer=args.optimiser,
-                      iters=args.iters, callback=logger,
-                      engine=args.engine)
+    logger = FitLogger(verbose=max(0, args.verbose - 1) if lead else 0,
+                       path=args.model_name + "_metrics.json" if lead
+                       else None)
+    if mesh is not None:
+        fitted, res = _fit_mesh(args, model, Xs, ys, mesh, logger)
+    else:
+        fitted, res = fit(model, Xs, ys, optimizer=args.optimiser,
+                          iters=args.iters, callback=logger,
+                          engine=args.engine)
     logger.save()
     if args.verbose > 0:
-        print(f"-logL: {res.trace[0]:.6f} -> {res.fun:.6f} "
-              f"({res.n_iters} iters, {res.n_evals} evals, stop: "
-              f"{res.stop_reason})")
-    save_model(fitted, args.model_name)
+        say(f"-logL: {res.trace[0]:.6f} -> {res.fun:.6f} "
+            f"({res.n_iters} iters, {res.n_evals} evals, stop: "
+            f"{res.stop_reason})")
+    if lead:
+        save_model(fitted, args.model_name)
 
     # the training-set fit, by the engine the fit ran; a profiler range
     # of its own
     with torch.autograd.profiler.record_function("cmd_train.predict"):
-        mu = _training_mean(fitted, Xs, ys, args.engine, device, dtype)
+        if mesh is not None:
+            mu = _training_mean_mesh(args.engine, fitted, Xs, ys, mesh)
+        else:
+            mu = _training_mean(fitted, Xs, ys, args.engine, device, dtype)
     yh = unapply_y(stats, mu)
     mse = float(np.mean((y - yh) ** 2))
     var_y = float(np.mean((y - y.mean()) ** 2))
     if args.verbose > 0:
-        print(f"Mean Square Error of training: {mse}")
-        print(f"Var MSE Train: {var_y}")
+        say(f"Mean Square Error of training: {mse}")
+        say(f"Var MSE Train: {var_y}")
     else:
-        print(mse)
-        print(var_y)
+        say(mse)
+        say(var_y)
     return 0
+
+
+def _fit_mesh(args, model, Xs, ys, mesh, logger):
+    """`train --engine dist|ring` over every rank of the mesh: the
+    row-split exact fit or the ring's matrix-free one, with the JAX
+    CLI's defaults (gp_ss_ak_tpu/cli.py:181-203)."""
+    from gp_ss_ak_torch.parallel import fit_distributed, fit_ring
+
+    verbose = max(0, args.verbose - 1) if mesh.rank == 0 else 0
+    if args.engine == "dist":
+        return fit_distributed(model, Xs, ys, mesh, optimizer=args.optimiser,
+                               iters=args.iters, callback=logger,
+                               verbose=verbose)
+    return fit_ring(model, Xs, ys, mesh, iters=args.iters, callback=logger,
+                    verbose=verbose)
+
+
+def _training_mean_mesh(engine: str, model, Xs, ys, mesh):
+    """The predictive mean at the training inputs by the mesh engine
+    that did the fit, in chunks of queries (the engines'
+    PREDICT_CHUNK): the row-split exact predict (the mean alone for a
+    plain Gaussian) or the ring's posterior mean (alpha by ring CG);
+    never an N x N panel. The JAX CLI predicts densely here."""
+    import torch
+
+    from gp_ss_ak_torch.parallel import (
+        make_dist_predict,
+        make_ring_posterior_mean,
+        shard_training_data,
+    )
+    from gp_ss_ak_torch.parallel.fit import NB
+
+    flat = model.pack().detach()
+    X_local, y_local, n, _ = shard_training_data(
+        mesh, torch.as_tensor(Xs, dtype=flat.dtype),
+        torch.as_tensor(ys, dtype=flat.dtype), nb=NB)
+    Xq = torch.as_tensor(Xs, dtype=flat.dtype, device=mesh.device)
+    if engine == "dist":
+        mu, _ = make_dist_predict(model.kernel, model.likelihood, mesh, n,
+                                  nb=NB)(flat, X_local, y_local, Xq,
+                                         mean_only=True)
+    else:
+        mu, _, _ = make_ring_posterior_mean(model.kernel, mesh, n)(
+            flat, X_local, y_local, Xq)
+    return mu.cpu().numpy()
 
 
 def cmd_test(args) -> int:

@@ -8,9 +8,10 @@ batched potrf and one batched QW adjoint (optim.api.batched_nlml_fn).
 Prediction is the exact posterior of every deposit at once.
 
 All GPs share (n, d, m) shapes — pad ragged deposits upstream with
-repeated rows + zero-weight targets if needed. The JAX package's
-`mesh=` (deposits sharded over devices) waits for the port of
-parallel/ and raises.
+repeated rows + zero-weight targets if needed. With `mesh=` (a
+parallel.Mesh) the deposits are split over the ranks, each rank fits its
+share as one batch, and the results are gathered onto every rank (the
+JAX package shards the batch axis over the devices).
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ import torch
 from gp_ss_ak_torch.inference import gaussian
 from gp_ss_ak_torch.model import GPModel
 from gp_ss_ak_torch.optim.api import minimize_batched, unpack_batched
-
-#: the refusal of the JAX package's mesh hooks (here and in bayes/)
-PARALLEL_NOT_PORTED = ("waits for the port of parallel/ "
-                       "(gp_ss_ak_tpu/parallel) to gp_ss_ak_torch")
-
 
 class EnsembleFit(NamedTuple):
     flat: torch.Tensor       # (B, p) fitted hypers per deposit
@@ -47,14 +43,34 @@ def fit_ensemble(model: GPModel, Xb, yb, maxiter: int = 100,
                  upper: Optional[np.ndarray] = None,
                  mesh=None) -> EnsembleFit:
     """Fit B independent GPs: Xb (B, n, d), yb (B, n), each from the
-    model's hyperparameters, on the model's device and dtype."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_ensemble(mesh=...) (deposits sharded over devices) "
-            + PARALLEL_NOT_PORTED)
-    res = minimize_batched(model, Xb, yb, maxiter, lower, upper)
-    return EnsembleFit(res.x, res.fun, res.n_iters, res.converged,
-                       res.n_evals)
+    model's hyperparameters, on the model's device and dtype.
+
+    With `mesh`, every rank passes the whole batch and fits its
+    contiguous share of at least one deposit (B >= mesh.size); each
+    deposit's fit is what the undivided batch gives it, and the result
+    (n_evals: the most any rank made) is the same on every rank."""
+    if mesh is None:
+        res = minimize_batched(model, Xb, yb, maxiter, lower, upper)
+        return EnsembleFit(res.x, res.fun, res.n_iters, res.converged,
+                           res.n_evals)
+    from gp_ss_ak_torch.parallel import comm
+
+    B = len(Xb)
+    if B < mesh.size:
+        raise ValueError(f"fit_ensemble: {B} deposits over {mesh.size} "
+                         "ranks; give every rank one")
+    lo, hi = comm.block_bounds(mesh, B)
+    res = minimize_batched(model, Xb[lo:hi], yb[lo:hi], maxiter, lower,
+                           upper)
+    x = res.x
+    cols = torch.stack([res.fun, res.n_iters.to(x.dtype),
+                        res.converged.to(x.dtype)], dim=1)
+    out = comm.all_gather_blocks(mesh, torch.cat([x, cols], dim=1), B)
+    p = x.shape[1]
+    n_evals = int(comm.pmax(mesh, torch.tensor(res.n_evals,
+                                               device=x.device)))
+    return EnsembleFit(out[:, :p], out[:, p], out[:, p + 1].to(
+        res.n_iters.dtype), out[:, p + 2] > 0.5, n_evals)
 
 
 def predict_batched(model: GPModel, flats: torch.Tensor, Xb, yb, Xstar_b):

@@ -308,15 +308,7 @@ def fit(
         if eng == "iterative":
             timing["cg"] = cg
 
-    oo = dict(opt_opts or {})
-    if name in ("LBFGS", "LBFGSB", "L-BFGS-B"):
-        opt = LBFGSB(maxiter=iters, verbose=verbose, **oo)
-    elif name == "BFGS":
-        opt = DenseBFGS(maxiter=iters, verbose=verbose, **oo)
-    elif name == "SCG":
-        opt = SCG(maxiter=iters, verbose=verbose, **oo)
-    else:
-        raise ValueError(f"Unrecognised optimiser type: {optimizer}")
+    opt = host_optimizer(name, iters, verbose, **(opt_opts or {}))
     res = opt.minimize(vgrad, x0, lb, ub, callback=callback)
     if timing is not None and timing["eval_spans"]:
         spans_ = timing["eval_spans"]
@@ -329,6 +321,19 @@ def fit(
         timing["eval_s_first"] = float(walls[0])
         timing["eval_s_steady_median"] = float(np.median(steady))
     return _fitted(model, res, X), res
+
+
+def host_optimizer(optimizer: str, iters: int, verbose: int = 0, **opts):
+    """The host optimizer the CLI's `-o` names ("LBFGS", "BFGS", "SCG";
+    gp_ss_ak.cpp:286-293), `opts` to its constructor."""
+    name = optimizer.upper()
+    if name in ("LBFGS", "LBFGSB", "L-BFGS-B"):
+        return LBFGSB(maxiter=iters, verbose=verbose, **opts)
+    if name == "BFGS":
+        return DenseBFGS(maxiter=iters, verbose=verbose, **opts)
+    if name == "SCG":
+        return SCG(maxiter=iters, verbose=verbose, **opts)
+    raise ValueError(f"Unrecognised optimiser type: {optimizer}")
 
 
 def _fitted(model: GPModel, res: OptResult, X) -> GPModel:

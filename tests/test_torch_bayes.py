@@ -41,6 +41,7 @@ from gp_ss_ak_torch.optim.api import batched_nlml_fn
 torch.set_num_threads(1)
 
 F64 = torch.float64
+CPU = torch.device("cpu")
 
 
 def t64(a):
@@ -331,6 +332,85 @@ def test_hmc_transition_replays_jax(target):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("target", ["gauss", "gp"])
+def test_full_mass_transition_replays_jax(target):
+    """The dense-mass HMC transition against JAX's
+    `_hmc_transition_full` on the same momenta and accept draw, per
+    chain, at rtol 1e-10; L evaluations, (log p, grad) carried."""
+    C = 2
+    if target == "gauss":
+        jlp, tlp = gauss_jax, gauss_torch
+        z = np.array([[0.3, -1.2], [1.5, 0.4]])
+        eps, L = 0.5, 5
+        Minv = COV
+    else:
+        jlp, tlp, z0 = gp_targets()
+        z = z0[None] + 0.3 * np.random.default_rng(4).normal(size=(C,
+                                                                  z0.size))
+        eps, L = 0.02, 4
+        B = np.random.default_rng(6).normal(size=(z0.size, z0.size))
+        Minv = B @ B.T / z0.size + np.eye(z0.size)
+    Lm = np.linalg.cholesky(np.linalg.inv(Minv))
+    keys = jax.random.split(jax.random.PRNGKey(9), C)
+    counts = {}
+    lpg = thmc.log_post_grad_fn(tlp, counts)
+    lp, g = lpg(t64(z))
+    zt, lpt, gt, apt = thmc._hmc_transition_full(
+        lpg, t64(z), lp, g, t64(np.full(C, eps)), L, t64(Lm), t64(Minv),
+        Replay(keys, z.shape[1], "hmc"))
+    assert counts["evals"] - 1 == L
+    step = jax.jit(lambda z, k: jhmc._hmc_transition_full(
+        jax_lpg(jlp), z, k, eps, L, jnp.asarray(Lm), jnp.asarray(Minv)))
+    for c in range(C):
+        zj, apj = step(jnp.asarray(z[c]), keys[c])
+        np.testing.assert_allclose(zt[c].numpy(), np.asarray(zj),
+                                   rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(apt[c].item(), float(apj), rtol=1e-10,
+                                   atol=1e-12)
+    lp2, g2 = lpg(zt)
+    np.testing.assert_allclose(lpt.numpy(), lp2.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(gt.numpy(), g2.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_full_mass_hmc_mixes_stiff_correlated_target():
+    """Mirrors tests/test_bayes.py's dense-metric test: on a tightly
+    correlated Gaussian, dense-mass HMC with M^-1 = the covariance lands
+    the covariance in 300 transitions, where diagonal-mass HMC at the
+    step the stiff scale needs barely moves along the long axis."""
+    rho = 0.999
+    scales = np.array([1.0, 1e-2])
+    Cov = np.array([[1.0, rho], [rho, 1.0]]) * np.outer(scales, scales)
+    prec = t64(np.linalg.inv(Cov))
+
+    def log_post(z):
+        return -0.5 * torch.einsum("ci,ij,cj->c", z, prec, z)
+
+    lpg = thmc.log_post_grad_fn(log_post)
+    Lm = t64(np.linalg.cholesky(np.linalg.inv(Cov)))
+
+    def run(step, seed):
+        draws = thmc.GeneratorDraws(torch.Generator().manual_seed(seed), 1,
+                                    2, F64, CPU)
+        z = torch.zeros((1, 2), dtype=F64)
+        lp, g = lpg(z)
+        out, aps = [], []
+        for _ in range(300):
+            z, lp, g, ap = step(z, lp, g, draws)[:4]
+            out.append(z[0].numpy())
+            aps.append(ap.item())
+        return np.stack(out), float(np.mean(aps))
+
+    sf, af = run(lambda z, lp, g, d: thmc._hmc_transition_full(
+        lpg, z, lp, g, t64([0.9]), 8, Lm, t64(Cov), d), 0)
+    sd, _ = run(lambda z, lp, g, d: thmc._hmc_transition(
+        lpg, z, lp, g, t64([0.009]), 8, torch.ones((1, 2), dtype=F64), d), 1)
+    assert af > 0.6
+    np.testing.assert_allclose(np.cov(sf.T), Cov, rtol=0.5,
+                               atol=0.1 * float(Cov[0, 0]))
+    assert np.var(sf[:, 0]) > 5 * np.var(sd[:, 0])
+
+
 def test_backward_subtree_turns_only_when_it_turns():
     # two leapfrogs backward at a small step on a Gaussian: the trajectory
     # has not turned. The JAX package's subtree reports a U-turn (its
@@ -481,9 +561,44 @@ def test_predictive_mixture_matches_jax(monkeypatch):
 
 
 def test_the_hooks_of_parallel_raise():
+    # named when the hooks raised: parallel/ is ported, and the hooks
+    # give what one rank gives (at 2 and 4 ranks:
+    # tests/test_torch_parallel.py). float64 on the CPU.
+    from gp_ss_ak_torch.optim.api import flat_nlml_fn
+    from gp_ss_ak_torch.parallel import make_mesh
+
     X, y = gp_data()
     model = tm.default_model(2, device="cpu")
-    for kw in ({"mesh": object()}, {"nlml_value_and_grad": lambda t: t}):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            sample_hyperposterior(model, X, y, 0, n_samples=1, n_warmup=1,
-                                  **kw)
+    kw = dict(n_samples=2, n_warmup=2)
+    # mesh=: the chains split over a mesh of one rank, bit for bit
+    plain = sample_hyperposterior(model, X, y, 0, n_chains=2, **kw)
+    split = sample_hyperposterior(model, X, y, 0, n_chains=2,
+                                  mesh=make_mesh("cpu"), **kw)
+    for a, b in zip(plain, split):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # nlml_value_and_grad=: an explicit gradient in every leapfrog, the
+    # chains one after another; one chain equals the dense objective's
+    f = flat_nlml_fn(model)
+
+    def vg(t):
+        x = t.detach().requires_grad_(True)
+        v = f(x, t64(X), t64(y))
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    dense = sample_hyperposterior(model, X, y, 1, n_chains=1,
+                                  sampler="hmc", **kw)
+    explicit = sample_hyperposterior(model, X, y, 1, n_chains=1,
+                                     sampler="hmc", nlml_value_and_grad=vg,
+                                     **kw)
+    for a, b in zip(explicit, dense):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10)
+    two = sample_hyperposterior(model, X, y, 1, n_chains=2, sampler="hmc",
+                                nlml_value_and_grad=vg, **kw)
+    assert two[0].shape == (2, 2, model.n_params)
+    # the two exclude each other, and each excludes nlml_fn, as in JAX
+    with pytest.raises(ValueError, match="not both"):
+        sample_hyperposterior(model, X, y, 0, nlml_value_and_grad=vg,
+                              nlml_fn=lambda t: t.sum(-1), **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        sample_hyperposterior(model, X, y, 0, nlml_value_and_grad=vg,
+                              mesh=make_mesh("cpu"), **kw)

@@ -29,7 +29,9 @@ runs in float64 on the card and on the CPU, a failed member included.
 The autograd Function and a 3-iteration dense fit run in float64 on the
 card and on the CPU: the forward Grams differ by the kernel's direct
 differences against the plain version's expansion (1e-10 of the scale),
-the gradients and the fitted hyperparameters by round-off.
+the gradients and the fitted hyperparameters by round-off. The mesh
+engines (parallel/) run on a mesh of one rank, NCCL on the card against
+gloo on the CPU, in float64.
 """
 
 import os
@@ -640,3 +642,74 @@ def test_nan_debug_and_checked_on_cuda(cuda):
     assert err.get() is not None and out.is_cuda
     err, _ = checked(torch.exp)(x)
     assert err.get() is None
+
+
+def _mesh_case(seed=12, n=70, d=3):
+    from gp_ss_ak_torch.model import default_model
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d))
+    y = np.sin(X[:, 0]) + 0.1 * rng.normal(size=n)
+    model = default_model(d, dtype=torch.float64, device="cpu")
+    flat = model.pack() * torch.as_tensor(rng.uniform(0.8, 1.2,
+                                                      model.n_params))
+    return model, flat, X, y
+
+
+def test_dist_nlml_on_cuda_matches_cpu(cuda):
+    """The row-split exact NLML on a mesh of one rank: NCCL on the card
+    (the panel through K1's cross entry, two launches an evaluation: the
+    panel, and its rebuild under autograd for the QW contraction) against
+    gloo on the CPU (kernel.matrix), float64, value rtol 1e-10 and
+    gradient 1e-8 of its largest entry; then the predict."""
+    from gp_ss_ak_torch import parallel as tp
+
+    model, flat, X, y = _mesh_case()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = tp.make_mesh(dev)
+        Xl, yl, n, _ = tp.shard_training_data(mesh, torch.as_tensor(X),
+                                              torch.as_tensor(y), nb=16)
+        f = tp.make_dist_nlml_and_grad(model.kernel, model.likelihood, mesh,
+                                       n, nb=16, grad_mode="exact")
+        before = pairwise.launches
+        v, g = f(flat.to(dev), Xl, yl)
+        mu, var = tp.make_dist_predict(model.kernel, model.likelihood, mesh,
+                                       n, nb=16)(
+            flat.to(dev), Xl, yl, torch.as_tensor(X[:9] + 0.05, device=dev))
+        if dev.type == "cuda":
+            assert pairwise.launches - before == 2 + 2   # NLML, predict
+        out.append([t.cpu().numpy() for t in (v, g, mu, var)])
+    (vc, gc, muc, varc), (vh, gh, muh, varh) = out
+    np.testing.assert_allclose(vc, vh, rtol=1e-10)
+    np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-8 * np.abs(gh).max())
+    np.testing.assert_allclose(muc, muh, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(varc, varh, rtol=1e-9, atol=1e-12)
+
+
+def test_ring_nlml_on_cuda_matches_cpu(cuda):
+    """The ring NLML on a mesh of one rank, its tiles through K1's cross
+    entry on the card, against the CPU on the same probes, float64,
+    tile chunks of 24 rows (a shorter last one): value and gradient rtol
+    1e-8, the same CG iteration count."""
+    from gp_ss_ak_torch import parallel as tp
+
+    model, flat, X, y = _mesh_case()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = tp.make_mesh(dev)
+        Xl, yl, n, _ = tp.shard_training_data(mesh, torch.as_tensor(X),
+                                              torch.as_tensor(y), nb=8)
+        f = tp.make_ring_nlml_and_grad(
+            model.kernel, mesh, n, precond_rank=8, probes=4, slq_probes=4,
+            lanczos_iters=8, cg_tol=1e-10, cg_maxiter=500, with_stats=True,
+            tile_chunk=24)
+        before = pairwise.launches
+        v, g, st = f(flat.to(dev), Xl, yl)
+        if dev.type == "cuda":
+            assert pairwise.launches > before
+        out.append([t.cpu().numpy() for t in (v, g, st)])
+    (vc, gc, sc), (vh, gh, sh) = out
+    np.testing.assert_allclose(vc, vh, rtol=1e-8)
+    np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-8 * np.abs(gh).max())
+    assert sc[0] == sh[0]

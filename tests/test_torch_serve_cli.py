@@ -240,6 +240,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import gp_ss_ak_torch.inference.laplace\n"
         "import gp_ss_ak_torch.utils.checkpoint\n"
         "import gp_ss_ak_torch.utils.profiling, gp_ss_ak_torch.utils.debug\n"
+        "import gp_ss_ak_torch.parallel, gp_ss_ak_torch.parallel.mesh\n"
+        "import gp_ss_ak_torch.parallel.comm\n"
+        "import gp_ss_ak_torch.parallel.multihost\n"
+        "import gp_ss_ak_torch.parallel.pchol, gp_ss_ak_torch.parallel.nlml\n"
+        "import gp_ss_ak_torch.parallel.fit, gp_ss_ak_torch.parallel.ring\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -21,9 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from gp_ss_ak_tpu.cli import main as jax_main
 from gp_ss_ak_torch.cli import main as torch_main
 from gp_ss_ak_torch.data import write_data
+from gp_ss_ak_torch.parallel import ring
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-6
@@ -198,13 +202,83 @@ def test_train_jit_matches_jax_cli(ore, capsys):
                                atol=RTOL * nums[0][1])
 
 
+def _mesh_train(ore, capsys, engine, iters):
+    """`train --engine ENGINE -# ITERS --float64 -v 1` through both CLIs:
+    the JAX CLI on a mesh of every CPU device tests/conftest.py forces
+    (8), the port's on a mesh of one rank (gloo on the CPU). Returns the
+    two (stdout, model path) pairs."""
+    train = str(ore / "train.txt")
+    runs = []
+    for main, name, extra in ((jax_main, "jax_" + engine, []),
+                              (torch_main, "torch_" + engine,
+                               ["--device", "cpu"])):
+        assert main(["-v", "1", "train", *extra, "--float64", "--engine",
+                     engine, "-#", str(iters), train,
+                     str(ore / name)]) == 0
+        runs.append((capsys.readouterr().out, str(ore / name)))
+    return runs
+
+
+def _mesh_checks(runs, iters):
+    """The -logL trajectory, iterations and evaluations, the model file
+    and the metrics trace at RTOL; returns the two training MSEs."""
+    (jout, jm), (tout, tm) = runs
+    pat = r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals"
+    (j0, j1, ji, je), (t0, t1, ti, te) = (re.search(pat, out).groups()
+                                          for out in (jout, tout))
+    assert (ti, te) == (ji, je) and int(ti) == iters
+    np.testing.assert_allclose([float(t0), float(t1)],
+                               [float(j0), float(j1)], rtol=RTOL)
+    assert _structure(tm) == _structure(jm)
+    np.testing.assert_allclose(_model_values(tm), _model_values(jm),
+                               rtol=RTOL)
+    with open(tm + "_metrics.json") as f, open(jm + "_metrics.json") as g:
+        trace = [[r["nlml"] for r in json.load(h)["trace"]] for h in (f, g)]
+    np.testing.assert_allclose(trace[0], trace[1], rtol=RTOL)
+    with open(tm + "_Statistics.txt") as a, open(jm + "_Statistics.txt") as b:
+        assert a.read() == b.read()
+    return [float(re.search(r"Mean Square Error of training: (\S+)",
+                            out).group(1)) for out in (jout, tout)]
+
+
+def test_train_dist_matches_jax_cli(ore, capsys):
+    """`train --engine dist`: the row-split exact fit (the exact gradient
+    at this N). The training MSE differs by construction: the port
+    predicts by the mesh engine (`cli._training_mean_mesh`), the JAX CLI
+    densely; both are the exact posterior mean, held at 1e-6 var(y)
+    (the MSE is a cancellation of ~1e-7 var(y))."""
+    runs = _mesh_train(ore, capsys, "dist", 2)
+    mse_j, mse_t = _mesh_checks(runs, 2)
+    var_y = float(re.search(r"Var MSE Train: (\S+)", runs[0][0]).group(1))
+    assert abs(mse_t - mse_j) < RTOL * var_y
+    # and, as the other engines, the card unless the CPU is asked for
+    assert torch_main(["train", "--engine", "dist", str(ore / "train.txt"),
+                       str(ore / "nocard")]) == 1
+    assert "no usable CUDA device" in capsys.readouterr().err
+
+
+def test_train_ring_matches_jax_cli(ore, capsys, monkeypatch):
+    """`train --engine ring`, the matrix-free fit on the ring, both CLIs
+    on JAX's probes: the JAX CLI's mesh pads the 160 rows to 8 x 256, and
+    the port is handed those draws' true rows through the probe draw
+    fit_ring makes (parallel.ring.draw_probes). The training MSE is the
+    port's ring posterior mean (CG to 1e-6), the JAX CLI's a dense
+    predict: held to 0.2 var(y) only."""
+    k_tr, k_ld = jax.random.split(jax.random.PRNGKey(0))
+    Z, Zl = (np.asarray(jax.random.rademacher(k, (2048, p), jnp.float64))
+             [:160] for k, p in ((k_tr, 8), (k_ld, 16)))
+    monkeypatch.setattr(ring, "draw_probes", lambda seed, n, p, s: (Z, Zl))
+    runs = _mesh_train(ore, capsys, "ring", 2)
+    _, mse_t = _mesh_checks(runs, 2)
+    var_y = float(re.search(r"Var MSE Train: (\S+)", runs[0][0]).group(1))
+    assert np.isfinite(mse_t) and mse_t < 0.2 * var_y
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--engine", "dist"], "parallel/"),
-    (["--engine", "ring"], "parallel/"),
     (["--segmented"], "optim/segmented.py"),
     (["-lf", "Student"], "Unknown likelihood function"),
     (["--init-params", "1,2"], "--init-params needs 9 values"),
-], ids=["dist", "ring", "segmented", "unknown_lik", "init_params"])
+], ids=["segmented", "unknown_lik", "init_params"])
 def test_train_refusals_exit_1(ore, capsys, extra, msg):
     rc = torch_main(["train", "--device", "cpu", *extra,
                      str(ore / "train.txt"), str(ore / "m")])
