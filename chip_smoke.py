@@ -8,6 +8,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
     python3 chip_smoke.py --only parallel (phases 1, 2, 25-30)
+    python3 chip_smoke.py --only segmented (phases 1, 2, 31-34)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -107,7 +108,9 @@ Phases, each of which raises on failure (nothing is caught):
      the ring predict (alpha and the variance columns by its whitened CG)
      against the dense Predictor;
  26. the same on 4 ranks sharing the card (this script run 4 times with
-     --mesh-rank, gloo asked for by name, host-staged), held to one rank;
+     --mesh-io, gloo asked for by name, host-staged), held to one rank,
+     and `entry.dryrun_multichip(4)` in place on those ranks, its NLML
+     held to the dense engine's in float64;
  27. the two-level meshes (2 chains x 2 rows) at N = 2048, dist and
      ring, each chain held to itself alone on one rank;
  28. K1's cross entry at the dist panel (16384^2) and the ring tile
@@ -122,6 +125,21 @@ Phases, each of which raises on failure (nothing is caught):
  30. `make_ring_predict` at 256 queries against the same in float64 and
      IterativePredictor (variances against the prior variance), with a
      TF32 control the variance gate must reject.
+ 31. the segmented evaluator (optim/segmented.py: the fused stream
+     evaluator with a warm start) at N = 100000 (BASELINE configuration
+     3's N) with STREAM_OPTS at the golden start, cold: bit for bit and
+     iteration for iteration against the fused stream evaluator, K3
+     launches = CG iterations + Lanczos steps, one evaluation split by
+     its profiler ranges;
+ 32. warm against cold at x and x (1 + 1e-3): fewer CG iterations warm,
+     the value within 1e-4 and the gradient within 2e-3 of its largest
+     entry, one more K3 pass;
+ 33. `cli.main([... "train" -# 2 --engine iterative --segmented ...])` at
+     N = 100000: per evaluation sn2, CG iterations, residual and rank; the
+     peak device memory within a bound derived from the code; the holdout
+     MSE on 4096 held-out composites through IterativePredictor;
+ 34. K3 at N = 100000, B = 9 and 32, against its plain version in float64
+     (with both controls) and timed beside its bound.
 Every bound is the largest of four terms (`bound`): bytes, FP32 work
 outside any product, SFU work and the product on the tensor cores at
 float32 accuracy; the line says which term sets it.
@@ -307,6 +325,29 @@ DIST64_VAL_RTOL, DIST64_GRAD_RTOL, DIST64_PRED_RTOL = 1e-9, 1e-7, 1e-9
 DIST_P4_RTOL, RING_P4_RTOL, RING_P4_GRAD = 1e-10, 1e-9, 1e-8
 RING_ALPHA_RTOL, TWO_LEVEL_RTOL = 1e-6, 1e-9
 DIST_F32_VAL_REL, DIST_F32_GRAD_REL = 5e-5, 5e-5
+# the mesh dry run (entry.dryrun_multichip) on MESH_RANKS ranks: 8 points
+# a rank in float32, its NLML against the dense float64 engine's (the
+# port's float32 value sat 1.7e-5 from the JAX dry run's on the CPU)
+DRYRUN_N, DRYRUN_VAL_RTOL = 8 * MESH_RANKS, 1e-4
+# the segmented evaluator (optim/segmented.py) at BASELINE.json
+# configuration 3's N (benchmarks/large_n.py's 100000), N_SEG_TEST held
+# out, with large_n.py's STREAM_OPTS (the segmented evaluator's defaults:
+# 16 Lanczos steps, cg_tol 1e-3, 32 SLQ probes) and 8 Hutchinson probes
+# at rank auto_precond_rank(N_SEG) = 1024; warm against cold at x and
+# x (1 + SEG_STEP), their values within SEG_WARM_RTOL
+# (tests/test_iterative.py:743-775) and their gradients within
+# SEG_WARM_GRAD of the largest entry (tests/test_torch_segmented.py's
+# rtol); the CLI's iterations; K3 timed at the path's widths (CG on
+# [y | 8 probes], SLQ)
+N_SEG, N_SEG_TEST = 100000, 4096
+STREAM_OPTS = dict(lanczos_iters=16, cg_tol=1e-3, slq_probes=32, probes=8)
+SEG_STEP, SEG_WARM_RTOL, SEG_WARM_GRAD, SEG_TRAIN_ITERS = 1e-3, 1e-4, 2e-3, 2
+K3_SEG_WIDTHS = ((9, 5), (32, 5))
+# the live (chunk, N) float32 blocks of the gradient contraction with
+# their saved tensors and cotangents, counted from
+# inference/iterative._grad_contraction (d2, the clamp, the diagonal
+# mask, r, exp(-r), the kernel, its bias and noise terms, their grads)
+SEG_CONTRACTION_BLOCKS = 16
 
 def _check(ok: bool, what: str) -> None:
     if not ok:
@@ -709,17 +750,17 @@ def k3_bits(device, seed: int, n: int = 4097):
           f"16-wide tile equals the middle tile at B = 9")
 
 
-def k3_times(device, seed: int, widths=K3_WIDTHS):
-    """CUDA event times of K3 and its plain version at N_ITER_TRAIN, d =
-    3, at `widths`, beside the bound; returns ({B: (ms, plain ms, bound
-    ms, term)}, the points, scal and the last width's V)."""
+def k3_times(device, seed: int, widths=K3_WIDTHS, n: int = N_ITER_TRAIN):
+    """CUDA event times of K3 and its plain version at n (N_ITER_TRAIN
+    unless given), d = 3, at `widths`, beside the bound; returns ({B:
+    (ms, plain ms, bound ms, term)}, the points, scal and the last
+    width's V)."""
     import torch
 
     from gp_ss_ak_torch.ops import matvec
 
     g = torch.Generator(device=device).manual_seed(seed + 2)
     bias_t, sn2_t = (torch.tensor(v, device=device) for v in (BIAS, SN2))
-    n = N_ITER_TRAIN
     Xk, scal, _ = _k3_case(g, device, n, 1, 3)
     out = {}
     for b, iters in widths:
@@ -2972,74 +3013,49 @@ def mesh_tasks(mesh, data, two=None):
 
 
 def mesh_rank_main(args) -> int:
-    """One rank of the MESH_RANKS-rank launch (`--mesh-rank`): gloo on
+    """One rank of the MESH_RANKS-rank launch (`--mesh-io`): gloo on
     the one card, asked for by name; writes its results beside the
     inputs."""
     import torch
 
     from gp_ss_ak_torch import parallel as tp
 
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(args.mesh_port),
-                      RANK=str(args.mesh_rank),
-                      WORLD_SIZE=str(args.mesh_world))
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = tp.make_mesh("cuda", backend="gloo")
     two = tp.two_level_mesh(rows_per_host=2, device="cuda", backend="gloo")
     with np.load(os.path.join(args.mesh_io, "in.npz")) as f:
         data = dict(f)
     out = mesh_tasks(mesh, data, two)
-    np.savez(os.path.join(args.mesh_io, f"rank{args.mesh_rank}.npz"), **out)
+    # the mesh dry run (entry.dryrun_multichip) in place on these ranks
+    from gp_ss_ak_torch.entry import dryrun_multichip
+    from gp_ss_ak_torch.ops import pairwise
+
+    before = pairwise.launches
+    for key, val in dryrun_multichip(MESH_RANKS, "cuda").items():
+        out["dryrun_" + key] = np.asarray(val)
+    out["k1"] = out["k1"] + (pairwise.launches - before)
+    np.savez(os.path.join(args.mesh_io, f"rank{os.environ['RANK']}.npz"),
+             **out)
     return 0
 
 
-def launch_mesh_ranks(data, workdir: str, world: int = None,
-                      timeout: float = MESH_TIMEOUT_S):
-    """Run `world` ranks of this script (`--mesh-rank`) on the one card,
-    gloo between them; every rank is stopped at the first failure or
-    past `timeout` seconds, and a failure raises. Returns the ranks'
+def launch_mesh_ranks(data, workdir: str, timeout: float = MESH_TIMEOUT_S):
+    """Run MESH_RANKS ranks of this script (`--mesh-io`) on the one card,
+    gloo between them, through the package's launcher
+    (parallel.launch_local: every rank is stopped at the first failure or
+    past `timeout` seconds, and a failure raises). Returns the ranks'
     results in rank order and the launch's wall seconds."""
-    import socket
+    from gp_ss_ak_torch.parallel import launch_local
 
-    world = world or MESH_RANKS
     os.makedirs(workdir, exist_ok=True)
     np.savez(os.path.join(workdir, "in.npz"), **data)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    procs = []
-    for r in range(world):
-        log = open(os.path.join(workdir, f"rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-             str(r), "--mesh-world", str(world), "--mesh-port", str(port),
-             "--mesh-io", workdir], stdout=log, stderr=subprocess.STDOUT,
-            env=env, cwd=ROOT), log))
-    failed = None
-    while failed is None and any(p.poll() is None for p, _ in procs):
-        failed = next((r for r, (p, _) in enumerate(procs)
-                       if p.poll() not in (None, 0)), None)
-        if time.perf_counter() - t0 > timeout:
-            failed = "timeout"
-        time.sleep(0.1)
-    if failed is None:
-        failed = next((r for r, (p, _) in enumerate(procs)
-                       if p.returncode != 0), None)
-    for p, log in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-        log.close()
-    wall = time.perf_counter() - t0
-    if failed is not None:
-        for r in range(world):
-            with open(os.path.join(workdir, f"rank{r}.log")) as f:
-                print(f"--- rank {r} ---\n{f.read()[-4000:]}")
-        raise AssertionError(f"mesh ranks failed ({failed})")
+    wall = launch_local([sys.executable, os.path.abspath(__file__),
+                         "--mesh-io", workdir], MESH_RANKS, workdir, timeout,
+                        env=env, cwd=ROOT)
     out = []
-    for r in range(world):
+    for r in range(MESH_RANKS):
         with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
             out.append(dict(f))
     return out, wall
@@ -3062,6 +3078,7 @@ def phase_mesh64(device, seed: int):
     import torch
 
     from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.model import default_model
     from gp_ss_ak_torch.optim import make_value_and_grad
     from gp_ss_ak_torch.serve import Predictor
 
@@ -3109,6 +3126,30 @@ def phase_mesh64(device, seed: int):
             worst[key] = max(worst.get(key, 0.0), e)
             _check(e <= tol, f"{key} on {MESH_RANKS} ranks disagrees with "
                    f"one rank: {e:.3e} > {tol}")
+    # the dry run on those ranks: its dist NLML (float32, DRYRUN_N
+    # points) against the dense engine's in float64 on the same points
+    rng = np.random.default_rng(0)
+    Xd = rng.uniform(-1, 1, size=(DRYRUN_N, 3)).astype(np.float32)
+    yd = np.sin(Xd @ np.array([3.0, 1.0, 2.0], np.float32))
+    start = default_model(3, dtype=torch.float64, device=device)
+    vdry = make_value_and_grad(start, Xd.astype(np.float64),
+                               yd.astype(np.float64))(
+        start.pack().cpu().numpy())[0]
+    for r in ranks:
+        line = str(r["dryrun_line"])
+        e = abs(float(r["dryrun_nlml"]) - vdry) / abs(vdry)
+        _check(re.fullmatch(r"dryrun_multichip\(4\): nlml=\S+ fit3=\S+ "
+                            r"ring=\S+ predict\+2level ok", line)
+               is not None, f"dry run printed {line!r}")
+        _check(e <= DRYRUN_VAL_RTOL, f"dry run NLML {r['dryrun_nlml']} vs "
+               f"dense float64 {vdry}: rel {e:.3e}")
+        _check(float(r["dryrun_ring_rel"]) < 1e-4
+               and float(r["dryrun_fit3"]) <= float(r["dryrun_nlml"]) + 1e-6,
+               "dry run: ring CG or fit_distributed failed")
+    print(f"{ranks[0]['dryrun_line']} (on {MESH_RANKS} ranks, gloo on the "
+          f"card; NLML {float(ranks[0]['dryrun_nlml'])!r} vs dense float64 "
+          f"{vdry!r}; ring CG {int(ranks[0]['dryrun_ring_iters'])} "
+          f"iterations)")
     print(f"mesh of {MESH_RANKS} ranks on one card (gloo, host-staged; "
           f"no NVLink): against one rank, worst rel "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -3449,18 +3490,276 @@ def run_parallel(device, seed: int, counts, dense_case, icase):
     return k1 + k1_ranks, report
 
 
+# ---------------------------------------------------------------------------
+# the segmented evaluator (optim/segmented.py): phases 31-34
+# ---------------------------------------------------------------------------
+
+def segmented_peak_bound(n: int, rank: int, chunk: int = 1024) -> float:
+    """Bytes a segmented stream fit and its matrix-free training-set mean
+    may hold on the device at n points, from the code: the pivoted
+    Cholesky's L and the preconditioner's Q beside it (n x rank each,
+    float32); the gradient contraction's (chunk, n) float32 blocks, at
+    most SEG_CONTRACTION_BLOCKS of them live with their saved tensors
+    and cotangents; 1 GiB for everything of O(n (B + d)) and the
+    allocator's rounding. The server's setup (L and Q again) and its
+    mean (a (4096, n) cross-Gram chunk) fit inside the same sum."""
+    return 4.0 * (2 * n * rank + SEG_CONTRACTION_BLOCKS * chunk * n) \
+        + 2.0 ** 30
+
+
+def _seg_case(device, seed: int):
+    """The N_SEG ore body (and N_SEG_TEST held-out composites) written as
+    the CLI reads it; (paths, the golden model in float32 on the card,
+    the standardized training X and y)."""
+    import torch
+
+    train, test, model_path = write_case(WORK + "_segmented", seed, N_SEG,
+                                         N_SEG_TEST)
+    model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
+                                            test, model_path)
+    return (train, test, model_path), model, Xtrs, ytrs
+
+
+def phase_seg_vs_fused(device, model, X, y):
+    """Phase 31: at the golden start, the fused stream evaluator and the
+    segmented one (cold) with the same options and probes: equal bits and
+    CG iterations; K3 launches = CG iterations + Lanczos steps; one
+    evaluation split by its profiler ranges. Returns (the cold evaluator,
+    the start x, its value, its CG iterations)."""
+    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.optim import (
+        make_iterative_value_and_grad,
+        make_segmented_value_and_grad,
+    )
+
+    x = model.pack().cpu().numpy().astype(np.float64)
+    fused = make_iterative_value_and_grad(model, X, y, mode="stream",
+                                          **STREAM_OPTS)
+    cold = make_segmented_value_and_grad(model, X, y, warm_start=False,
+                                         **STREAM_OPTS)
+    t0 = time.perf_counter()
+    vf, gf = fused(x)
+    t_fused = time.perf_counter() - t0
+    before = matvec.launches
+    t0 = time.perf_counter()
+    vs, gs = cold(x)
+    t_seg = time.perf_counter() - t0
+    k3 = matvec.launches - before
+    k, rel = cold.last_cg_iters, cold.last_rel_residual
+    lanczos = STREAM_OPTS["lanczos_iters"]
+    print(f"segmented vs fused at N={N_SEG} (golden start, sn2 "
+          f"{float(x[-1])!r}, "
+          f"rank {cold.precond_rank}): value {vs!r} vs {vf!r}; gradient "
+          f"bits equal {np.array_equal(gs, gf)}; CG {k} vs "
+          f"{fused.last_cg_iters} iterations, rel residual {rel:.3e}; "
+          f"one evaluation {t_seg:.3f} s segmented, {t_fused:.3f} s fused "
+          f"(host clock); K3 launches {k3} (CG {k} + Lanczos {lanczos})")
+    _check(np.isfinite(vs) and bool(np.all(np.isfinite(gs))),
+           "segmented evaluation not finite")
+    _check(vs == vf and np.array_equal(gs, gf)
+           and k == fused.last_cg_iters,
+           "segmented evaluation differs from the fused stream one")
+    _check(k3 == k + lanczos, f"segmented evaluation: {k3} K3 launches, "
+           f"expected {k} + {lanczos}")
+    labels = {"iterative._pivchol": "pivoted Cholesky",
+              "iterative.whitened_solve_info": "whitened CG",
+              "iterative.slq_logdet_batched": "SLQ",
+              "iterative._grad_contraction": "gradient contraction",
+              "kernel:matmat": "K3"}
+    _, pwall, split, total, top = profile_split(lambda: cold(x), labels)
+    host = ", ".join(f"{labels[key]} {split[key][2] / 1e3:.3f} s"
+                     for key in labels if not key.startswith("kernel:"))
+    print(f"segmented evaluation at N={N_SEG}: device time "
+          f"{_split_text(split, labels, pwall, total, top)}; host clock "
+          f"(profiled) {host}; K3 {split['kernel:matmat'][0]} launches")
+    return cold, x, vs, k
+
+
+def phase_seg_warm(model, X, y, cold, x, v1, k1):
+    """Phase 32: two evaluations, at x and x (1 + SEG_STEP), cold and
+    warm (tests/test_iterative.py:743-775): the warm one's first equals
+    the cold one's bits, its second takes fewer CG iterations to the cold
+    value within SEG_WARM_RTOL and gradient within SEG_WARM_GRAD of its
+    largest entry, and one more K3 pass (its true residual)."""
+    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.optim import make_segmented_value_and_grad
+
+    x2 = x * (1.0 + SEG_STEP)
+    vc2, gc2 = cold(x2)
+    kc2, relc2 = cold.last_cg_iters, cold.last_rel_residual
+    warm = make_segmented_value_and_grad(model, X, y, **STREAM_OPTS)
+    vw1, _ = warm(x)
+    kw1 = warm.last_cg_iters
+    before = matvec.launches
+    t0 = time.perf_counter()
+    vw2, gw2 = warm(x2)
+    t_warm = time.perf_counter() - t0
+    k3 = matvec.launches - before
+    kw2, relw2 = warm.last_cg_iters, warm.last_rel_residual
+    e_v = abs(vw2 - vc2) / abs(vc2)
+    e_g = float(np.max(np.abs(gw2 - gc2)) / np.max(np.abs(gc2)))
+    print(f"warm vs cold at N={N_SEG}, x then x (1 + {SEG_STEP}): CG "
+          f"iterations cold {k1}, {kc2} (rel residual {relc2:.3e}); warm "
+          f"{kw1}, {kw2} (rel residual "
+          f"{relw2:.3e}); second value warm {vw2!r} vs cold {vc2!r}, rel "
+          f"{e_v:.3e} (tol {SEG_WARM_RTOL}); gradient {e_g:.3e} of its "
+          f"largest entry (tol {SEG_WARM_GRAD}); the warm evaluation {t_warm:.3f} s host clock, "
+          f"K3 launches {k3}")
+    _check(vw1 == v1 and kw1 == k1,
+           "a warm evaluator's first evaluation is not cold")
+    _check(kw2 < kc2, f"warm start took {kw2} CG iterations, cold {kc2}")
+    _check(e_v <= SEG_WARM_RTOL, "warm and cold values disagree")
+    _check(e_g <= SEG_WARM_GRAD, "warm and cold gradients disagree")
+    _check(k3 == kw2 + STREAM_OPTS["lanczos_iters"] + 1,
+           f"warm evaluation: {k3} K3 launches, expected {kw2} + "
+           f"{STREAM_OPTS['lanczos_iters']} + 1")
+    return kc2, kw2
+
+
+def _recording(make, log):
+    """make_segmented_value_and_grad that appends (sn2, CG iterations,
+    rel residual, rank, host seconds) for every evaluation to `log`."""
+    def made(model, X, y, **kw):
+        vg = make(model, X, y, **kw)
+
+        def call(x):
+            t0 = time.perf_counter()
+            out = vg(x)
+            log.append((float(x[-1]), vg.last_cg_iters,
+                        vg.last_rel_residual, vg.precond_rank,
+                        time.perf_counter() - t0))
+            return out
+
+        return call
+
+    return made
+
+
+def phase_seg_train(device, case, workdir: str):
+    """Phase 33: `train -# SEG_TRAIN_ITERS --engine iterative --segmented`
+    through the CLI at N_SEG: wall, evaluations, per evaluation its sn2,
+    CG iterations, residual and preconditioner rank; the peak device
+    memory against segmented_peak_bound; then the holdout MSE on the
+    N_SEG_TEST held-out composites through IterativePredictor(mean_only)
+    from the saved model."""
+    import torch
+
+    from gp_ss_ak_torch import cli
+    from gp_ss_ak_torch.data import Statistics, unapply_y
+    from gp_ss_ak_torch.inference.iterative import auto_precond_rank
+    from gp_ss_ak_torch.model import load_model
+    from gp_ss_ak_torch.optim import api
+    from gp_ss_ak_torch.serve import IterativePredictor
+
+    train, test, model_path = case
+    out_model = os.path.join(workdir, "trained_segmented")
+    log = []
+    make = api.make_segmented_value_and_grad
+    api.make_segmented_value_and_grad = _recording(make, log)
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["-v", "1", "train", "-#", str(SEG_TRAIN_ITERS),
+                           "--engine", "iterative", "--segmented", train,
+                           out_model])
+        wall = time.perf_counter() - t0
+    finally:
+        api.make_segmented_value_and_grad = make
+    peak = torch.cuda.max_memory_allocated()
+    text = text.getvalue()
+    print("cli train --segmented:", " | ".join(text.strip().splitlines()),
+          f"(rc {rc}, {wall:.3f} s wall, file IO included)")
+    _check(rc == 0, f"cli train --segmented at N={N_SEG} returned {rc}")
+    m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals, "
+                  r"stop: (\S+)\)", text)
+    _check(m is not None, "cli train --segmented printed no -logL line")
+    first, last, evals = float(m.group(1)), float(m.group(2)), \
+        int(m.group(4))
+    print(f"segmented train at N={N_SEG}: -logL {first} -> {last}, "
+          f"{evals} evaluations, stop {m.group(5)}; per evaluation (sn2, "
+          f"CG iterations, rel residual, rank, s): "
+          + "; ".join(f"({s2:.6g}, {k}, {r:.3e}, {rk}, {t:.3f})"
+                      for s2, k, r, rk, t in log))
+    bound = segmented_peak_bound(N_SEG, auto_precond_rank(N_SEG))
+    print(f"segmented train: peak device memory {peak / 2**30:.3f} GiB "
+          f"(limit {bound / 2**30:.3f} GiB from the code; a float32 K "
+          f"alone is {4.0 * N_SEG ** 2 / 2**30:.1f} GiB)")
+    _check(len(log) == evals, f"{len(log)} evaluations recorded, the CLI "
+           f"says {evals}")
+    _check(np.isfinite(first) and np.isfinite(last) and last <= first,
+           f"segmented train: -logL {first} -> {last}")
+    _check(peak <= bound, f"segmented train peaked at {peak / 2**30:.3f} "
+           f"GiB, past {bound / 2**30:.3f}")
+    # the holdout: the saved model served by the matrix-free server
+    model = load_model(out_model, torch.float32, device)
+    stats = Statistics.load(out_model + "_Statistics.txt")
+    _, _, Xtrs, ytrs, Xts, yt = _load_case(device, torch.float32, train,
+                                           test, model_path)
+    t0 = time.perf_counter()
+    server = IterativePredictor(model, Xtrs, ytrs)
+    mu, _ = server(Xts, mean_only=True)
+    t_pred = time.perf_counter() - t0
+    yh = unapply_y(stats, np.asarray(mu))
+    mse = float(np.mean((yt - yh) ** 2))
+    var_t = float(np.var(yt))
+    print(f"segmented model, holdout of {N_SEG_TEST}: MSE {mse:.6g} = "
+          f"{mse / var_t:.4f} var(y) (limit {MSE_MAX}); IterativePredictor "
+          f"setup + mean {t_pred:.3f} s")
+    _check(np.isfinite(mse) and mse < MSE_MAX * var_t,
+           f"segmented holdout MSE {mse} not below {MSE_MAX} var(y)")
+    return evals, log, peak
+
+
+def phase_seg_k3(device, seed: int):
+    """Phase 34: K3 at N_SEG against its plain version in float64 (with
+    the TF32 and 3xTF32 controls) at the segmented path's widths, and
+    timed there beside its bound. Returns the report."""
+    worst, _ = k3_gate(device, seed, [(N_SEG, b, 3) for b, _ in
+                                      K3_SEG_WIDTHS])
+    times, _, _, _ = k3_times(device, seed, K3_SEG_WIDTHS, n=N_SEG)
+    return {"max_abs_err": worst, **times}
+
+
+def run_segmented(device, seed: int, zero, counts):
+    """Counted: phases 31-33 at N_SEG (K3 alone: no K1 or K2 in the
+    fits; the server's mean launches K1); then phase 34 outside the
+    count. Returns (the counted K1 and K3 launches, phase 34's report)."""
+    import torch
+
+    t0 = time.perf_counter()
+    case, model, Xtrs, ytrs = _seg_case(device, seed)
+    zero()
+    cold, x, v1, k1 = phase_seg_vs_fused(device, model, Xtrs, ytrs)
+    kc2, kw2 = phase_seg_warm(model, Xtrs, ytrs, cold, x, v1, k1)
+    del cold
+    torch.cuda.empty_cache()
+    _check(counts()[:2] == (0, 0), f"segmented evaluations: (K1, K2, K3) "
+           f"= {counts()}")
+    phase_seg_train(device, case, os.path.dirname(case[0]))
+    k1_l, _, k3_l = counts()
+    print(f"segmented path: (K1, K2, K3) launches {counts()}")
+    _check(k3_l > 0 and k1_l > 0, f"segmented path: (K1, K2, K3) = "
+           f"{counts()}")
+    torch.cuda.empty_cache()
+    report = phase_seg_k3(device, seed)
+    print(f"segmented phases done in {time.perf_counter() - t0:.1f} s")
+    return k1_l, k3_l, report
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("k3", "warped", "batched",
-                                       "sparse", "parallel"),
+                                       "sparse", "parallel", "segmented"),
                     help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
                          "sparse: phases 1, 2 and 19-24; parallel: phases "
-                         "1, 2 and 25-30. None prints a result")
+                         "1, 2 and 25-30; segmented: phases 1, 2 and "
+                         "31-34. None prints a result")
     # one rank of the phases' multi-rank launch (launch_mesh_ranks)
-    for flag in ("--mesh-rank", "--mesh-world", "--mesh-port"):
-        ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-io", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3470,7 +3769,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    if args.mesh_rank is not None:
+    if args.mesh_io is not None:
         return mesh_rank_main(args)
     from gp_ss_ak_torch.ops import matvec, pairwise
 
@@ -3507,6 +3806,12 @@ def main(argv=None) -> int:
                            N_ITER_TEST)
         run_parallel(device, args.seed, take_k1, dense, icase)
         print(f"parallel phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    if args.only == "segmented":
+        run_segmented(device, args.seed, zero, counts)
+        print(f"segmented phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3651,6 +3956,13 @@ def main(argv=None) -> int:
                                  (itrain, itest, imodel))
     k1_launches += k1_p
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_mesh["max_abs_err"])
+
+    # counted runs 17-19, the segmented evaluator at N_SEG: against the
+    # fused one, warm against cold, `train --segmented` and its holdout
+    k1_g, k3_g, k3_seg = run_segmented(device, args.seed, zero, counts)
+    k1_launches += k1_g
+    k3_launches += k3_g
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_seg["max_abs_err"])
 
     print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

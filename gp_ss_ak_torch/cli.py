@@ -5,7 +5,7 @@ Usage (gp_ss_ak.cpp:14-63, 511-557; same flags as gp_ss_ak_tpu.cli):
   python -m gp_ss_ak_torch [-v N] [-pm N] train [-k NAME]... [-o OPT]
          [-# ITERS] [-kn 0|1] [-mf NAME] [-lf NAME] [--init-params CSV]
          [--init-lik SN2] [--engine auto|dense|iterative|dist|ring]
-         [--float64]
+         [--segmented] [--float64]
          [--device DEV] TRAIN_FILE [MODEL_NAME]
 
   python -m gp_ss_ak_torch [-v N] [-pm N] test [--no-plot] [--float64]
@@ -49,8 +49,11 @@ has P ranks and only rank 0 prints and writes files. The training-set
 mean comes from the same engine (`_training_mean_mesh`), where the JAX
 CLI predicts densely.
 
-Not ported (exit 1, naming the module): the segmented evaluator
-(`--segmented`, optim/segmented.py).
+`train --engine iterative --segmented` fits with the JAX package's
+segmented evaluator's route (optim/segmented.py): the stream evaluator
+with its defaults, each CG solve warm-started from the last one's
+solutions; its training-set mean comes from the matrix-free server,
+since the fit ran in stream mode at any N.
 """
 
 from __future__ import annotations
@@ -119,7 +122,10 @@ def _build_parser() -> argparse.ArgumentParser:
                          "'ring' the ring's matrix-free one over every "
                          "rank (parallel/)")
     tr.add_argument("--segmented", action="store_true",
-                    help="not ported (optim/segmented.py)")
+                    help="with --engine iterative: the stream "
+                         "evaluator with each CG solve warm-started "
+                         "from the last one's solutions "
+                         "(optim/segmented.py), for the N >~ 10^5 regime")
     tr.add_argument("--float64", action="store_true",
                     help="fit in float64 (ignored by the iterative "
                          "engine, which is float32-only)")
@@ -167,13 +173,8 @@ def _device(args):
     return device
 
 
-def _not_ported(what: str) -> int:
-    print(f"Error: {what} is not ported to gp_ss_ak_torch yet",
-          file=sys.stderr)
-    return 1
-
-
-def _training_mean(model, Xs, ys, engine: str, device, dtype):
+def _training_mean(model, Xs, ys, engine: str, device, dtype,
+                   segmented: bool = False):
     """The predictive mean at the training inputs, for the printed MSE,
     by the engine and mode the fit ran: a dense or chol-mode fit held A
     and L on the device, so the exact dense predict runs
@@ -181,7 +182,8 @@ def _training_mean(model, Xs, ys, engine: str, device, dtype):
     no N x N cross-Gram);
     a gemm- or stream-mode fit could not, so the matrix-free server
     gives the mean (a warped model there still pays the variance
-    solves, as the JAX server does)."""
+    solves, as the JAX server does). A segmented iterative fit ran in
+    stream mode whatever N is."""
     import torch
 
     from gp_ss_ak_torch.inference import factorize, posterior_mean
@@ -191,7 +193,7 @@ def _training_mean(model, Xs, ys, engine: str, device, dtype):
 
     n = Xs.shape[0]
     if (resolve_engine(engine, n, model) == "iterative"
-            and ti.choose_mode(n, "auto", device) != "chol"):
+            and (segmented or ti.choose_mode(n, "auto", device) != "chol")):
         mu, _ = IterativePredictor(model, Xs, ys)(Xs, mean_only=True)
         return mu
     X = torch.as_tensor(Xs, dtype=dtype, device=device)
@@ -227,8 +229,6 @@ def cmd_train(args) -> int:
         wlik = WarpedGaussian(family=family,
                               n_triplets=int(parts[2]) if len(parts) > 2
                               else 1)
-    if args.segmented:
-        return _not_ported("--segmented (optim/segmented.py)")
     device = _device(args)
     if device is None:
         return 1
@@ -288,7 +288,9 @@ def cmd_train(args) -> int:
     else:
         fitted, res = fit(model, Xs, ys, optimizer=args.optimiser,
                           iters=args.iters, callback=logger,
-                          engine=args.engine)
+                          engine=args.engine,
+                          engine_opts=dict(segmented=True)
+                          if args.segmented else None)
     logger.save()
     if args.verbose > 0:
         say(f"-logL: {res.trace[0]:.6f} -> {res.fun:.6f} "
@@ -303,7 +305,8 @@ def cmd_train(args) -> int:
         if mesh is not None:
             mu = _training_mean_mesh(args.engine, fitted, Xs, ys, mesh)
         else:
-            mu = _training_mean(fitted, Xs, ys, args.engine, device, dtype)
+            mu = _training_mean(fitted, Xs, ys, args.engine, device, dtype,
+                                args.segmented)
     yh = unapply_y(stats, mu)
     mse = float(np.mean((y - yh) ** 2))
     var_y = float(np.mean((y - y.mean()) ** 2))

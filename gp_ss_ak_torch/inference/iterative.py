@@ -129,6 +129,24 @@ def precond_sqrt_apply(Q: torch.Tensor, inv_sqrt_eig: torch.Tensor, sn2,
     return out if v.dim() == 2 else out[:, 0]
 
 
+def precond_sqrt_fwd_apply(Q: torch.Tensor, inv_sqrt_eig: torch.Tensor, sn2,
+                           v: torch.Tensor) -> torch.Tensor:
+    """P^(+1/2) v from the same pieces: the forward square root, which
+    carries an unwhitened warm start into a new whitened basis,
+    x0_w = P^(1/2) x_prev. With the mask inv_sqrt_eig > 0,
+    sqrt(S + sn2) = 1 / inv_sqrt_eig on the masked columns, sqrt(sn2)
+    elsewhere."""
+    rsn = torch.sqrt(_t(sn2, Q))
+    masked = inv_sqrt_eig > 0
+    sqrt_eig = torch.where(masked, 1.0 / torch.where(
+        masked, inv_sqrt_eig, torch.ones_like(inv_sqrt_eig)), rsn)
+    vm = v if v.dim() == 2 else v[:, None]
+    with highest_precision():
+        Qtv = Q.T @ vm
+        out = (vm - Q @ Qtv) * rsn + Q @ (sqrt_eig[:, None] * Qtv)
+    return out if v.dim() == 2 else out[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # batched (P)CG
 # ---------------------------------------------------------------------------
@@ -242,10 +260,16 @@ def bcg_rel_residual(state, thresh, tol: float) -> torch.Tensor:
 
 
 def bcg_solve_info(matmat: Callable, B_rhs: torch.Tensor, pinv=None,
-                   tol: float = 1e-5, maxiter: int = 500):
+                   tol: float = 1e-5, maxiter: int = 500, X0=None):
     """`bcg_solve` plus the achieved worst-column relative residual.
-    Returns (X (n, B), n_iters, rel_residual)."""
-    state, thresh = bcg_init(B_rhs, pinv, tol)
+    `X0` warm-starts the solve, at the cost of one more matmat for its
+    true residual (`bcg_init`). Returns (X (n, B), n_iters,
+    rel_residual)."""
+    if X0 is None:
+        state, thresh = bcg_init(B_rhs, pinv, tol)
+    else:
+        state, thresh = bcg_init(B_rhs, pinv, tol, X0=X0,
+                                 R0=B_rhs - matmat(X0))
     state = bcg_segment(matmat, pinv, state, thresh, maxiter)
     return state[6], state[5], bcg_rel_residual(state, thresh, tol)
 
@@ -253,12 +277,14 @@ def bcg_solve_info(matmat: Callable, B_rhs: torch.Tensor, pinv=None,
 @record_function("iterative.whitened_solve_info")
 def whitened_solve_info(op_matmat: Callable, L: torch.Tensor, sn2,
                         B_rhs: torch.Tensor, tol: float = 1e-4,
-                        maxiter: int = 500):
+                        maxiter: int = 500, X_prev=None):
     """Solve A X = B by plain batched CG on the whitened operator
     P^(-1/2) A P^(-1/2), P = L L^T + sn2 I. Mathematically PCG with P;
     numerically it avoids the r'z cross products that break down in
     float32 at the flagship conditioning, since CG here runs on
-    kappa ~ (lambda_k + sn2) / sn2.
+    kappa ~ (lambda_k + sn2) / sn2. `X_prev`, an earlier solution of a
+    nearby system, warm-starts the solve from P^(1/2) X_prev, its
+    image in this whitening basis.
 
     Returns (X, iters, rel_whitened, logdet_P, wmm), wmm the whitened
     matmat closure."""
@@ -269,7 +295,10 @@ def whitened_solve_info(op_matmat: Callable, L: torch.Tensor, sn2,
             Q, ise, sn2, op_matmat(precond_sqrt_apply(Q, ise, sn2, V)))
 
     Bt = precond_sqrt_apply(Q, ise, sn2, B_rhs)
-    Xw, it, rel = bcg_solve_info(wmm, Bt, None, tol=tol, maxiter=maxiter)
+    X0 = None if X_prev is None else precond_sqrt_fwd_apply(Q, ise, sn2,
+                                                            X_prev)
+    Xw, it, rel = bcg_solve_info(wmm, Bt, None, tol=tol, maxiter=maxiter,
+                                 X0=X0)
     return precond_sqrt_apply(Q, ise, sn2, Xw), it, rel, logdet_P, wmm
 
 
@@ -450,12 +479,18 @@ def _quadrature(alphas: torch.Tensor, betas: torch.Tensor,
                 n: int) -> torch.Tensor:
     """n * sum_i V[0, i]^2 log w_i for each tridiagonal (alphas (k, B),
     off-diagonals betas (k-1, B)): one batched k x k eigh on the
-    device. Returns (B,)."""
+    device. Returns (B,). A tridiagonal with a non-finite entry (the
+    operator of a failed evaluation) gives NaN, as JAX's eigh does,
+    where torch's would raise."""
     T = torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, 1) \
         + torch.diag_embed(betas.T, -1)
+    bad = ~torch.isfinite(T).all(dim=-1).all(dim=-1)
+    T = torch.where(bad[:, None, None], torch.eye(
+        T.shape[-1], dtype=T.dtype, device=T.device), T)
     w, V = torch.linalg.eigh(T)
     w = torch.clamp_min(w, 1e-12)
-    return float(n) * torch.sum(V[:, 0, :] ** 2 * torch.log(w), dim=-1)
+    vals = float(n) * torch.sum(V[:, 0, :] ** 2 * torch.log(w), dim=-1)
+    return torch.where(bad, torch.full_like(vals, float("nan")), vals)
 
 
 def slq_logdet(matvec: Callable, n: int, key, probes: int = 16,
@@ -550,11 +585,13 @@ def chunked_matvec(params_to_A_row_chunk: Callable, v: torch.Tensor,
 
 
 class IterStats(NamedTuple):
-    """Solve diagnostics + alpha from one fused NLML+grad evaluation."""
+    """Solve diagnostics + alpha from one fused NLML+grad evaluation;
+    `sols` = [alpha | A^-1 Z_trace], None where no CG ran (chol)."""
 
     cg_iters: int
     rel_residual: torch.Tensor
     alpha: torch.Tensor
+    sols: Optional[torch.Tensor] = None
 
 
 class IterativeGP(NamedTuple):
@@ -850,7 +887,7 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
                             probes: int = 8, lanczos_iters: int = 32,
                             chunk: int = 1024, precond_rank=None,
                             slq_probes: int = 64, mode: str = "auto",
-                            Z_logdet=None, Z_trace=None):
+                            Z_logdet=None, Z_trace=None, X_prev=None):
     """Fused NLML + gradient, sharing every expensive intermediate: the
     pivoted Cholesky is built once, and alpha = A^-1 y rides the same
     batched solve as the Hutchinson probes ([y | Z] in lock-step). The
@@ -858,8 +895,14 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     the same whitened operator.
 
     Returns (value, (d_sigma, d_bias, d_sn2, d_Xm), IterStats(cg_iters,
-    rel_residual, alpha)); rel_residual is 0 on the exact chol path.
-    Z_logdet (n, slq_probes) and Z_trace (n, probes) inject the probes."""
+    rel_residual, alpha, sols)); rel_residual is 0 on the exact chol
+    path. Z_logdet (n, slq_probes) and Z_trace (n, probes) inject the
+    probes. `X_prev` (n, 1 + probes), the `sols` of an earlier
+    evaluation, warm-starts the solve; the chol path has no solve and
+    ignores it. Non-finite solutions (an evaluation whose
+    preconditioner failed) start cold: the JAX package's segmented
+    evaluator seeds its best iterate with them, which no later iterate
+    can beat, so every later evaluation of its fit returns NaN."""
     it_gp = _f32(it_gp)
     y = torch.as_tensor(y, dtype=torch.float32, device=it_gp.Xm.device)
     n = y.shape[0]
@@ -874,15 +917,18 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     L = _pivchol(it_gp, precond_rank)
     Zm = _probes(key_trace, n, probes, Z_trace, y.device)
     rhs = torch.cat([y[:, None], Zm], 1)
+    if X_prev is not None and not bool(torch.isfinite(X_prev).all()):
+        X_prev = None
     if L is None:
         sols, it, rel = bcg_solve_info(op.matmat, rhs, None, tol=cg_tol,
-                                       maxiter=cg_maxiter)
+                                       maxiter=cg_maxiter, X0=X_prev)
         half_logdet = 0.5 * slq_logdet_batched(
             op.matmat, n, key_logdet, slq_probes, lanczos_iters, Z_logdet,
             y.device)
     else:
         sols, it, rel, logdet_P, wmm = whitened_solve_info(
-            op.matmat, L, it_gp.sn2, rhs, tol=cg_tol, maxiter=cg_maxiter)
+            op.matmat, L, it_gp.sn2, rhs, tol=cg_tol, maxiter=cg_maxiter,
+            X_prev=X_prev)
         del L
         half_logdet = 0.5 * (logdet_P + slq_logdet_batched(
             wmm, n, key_logdet, slq_probes, lanczos_iters, Z_logdet,
@@ -890,4 +936,4 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     alpha, ws = sols[:, 0], sols[:, 1:].T
     val = 0.5 * torch.dot(y, alpha) + half_logdet + _const(n)
     grads = _grad_contraction(it_gp, alpha, ws, Zm.T, chunk)
-    return val, grads, IterStats(int(it), rel, alpha)
+    return val, grads, IterStats(int(it), rel, alpha, sols)

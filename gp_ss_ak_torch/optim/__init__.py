@@ -1,7 +1,7 @@
 """Optimization: the host optimizers (bound-constrained L-BFGS, dense
 BFGS, SCG; numpy-only copies of gp_ss_ak_tpu/optim), the training
-entry point `fit` over the dense and matrix-free engines, and the
-matrix-free engine's model check."""
+entry point `fit` over the dense and matrix-free engines (the latter
+cold or warm-started), and the matrix-free engine's model check."""
 
 from gp_ss_ak_torch.optim.api import (
     fit,
@@ -22,6 +22,7 @@ from gp_ss_ak_torch.optim.lbfgsb import (
     OptResult,
 )
 from gp_ss_ak_torch.optim.scg import SCG
+from gp_ss_ak_torch.optim.segmented import make_segmented_value_and_grad
 
 __all__ = [
     "fit",
@@ -30,6 +31,7 @@ __all__ = [
     "make_value_and_grad",
     "resolve_engine",
     "make_iterative_value_and_grad",
+    "make_segmented_value_and_grad",
     "supports_iterative",
     "DENSE_MAX_N",
     "LBFGSB",

@@ -19,9 +19,11 @@ sampler's chains).
 
 `fit(checkpoint_path=...)` saves the flat hyper vector every
 `checkpoint_every` iterations and, with `resume`, starts from the last
-one saved (utils/checkpoint.py, the JAX package's files). Not ported
-(it raises, naming the JAX module): the segmented evaluator
-(optim/segmented.py).
+one saved (utils/checkpoint.py, the JAX package's files).
+
+`engine_opts={"segmented": True}` runs the iterative engine's stream
+evaluator with a warm start, under the JAX segmented evaluator's
+defaults (optim/segmented.py).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from gp_ss_ak_torch.optim.lbfgsb import (
     OptResult,
 )
 from gp_ss_ak_torch.optim.scg import SCG
+from gp_ss_ak_torch.optim.segmented import make_segmented_value_and_grad
 from gp_ss_ak_torch.utils.checkpoint import (
     CheckpointCallback,
     load_fit_checkpoint,
@@ -230,7 +233,11 @@ def fit(
     `engine`: "dense" (exact Cholesky NLML, inference/gaussian.py),
     "iterative" (matrix-free CG + SLQ, optim/iterative_fit.py; flagship
     model only, float32), or "auto" (`resolve_engine`).
-    `engine_opts` go to make_iterative_value_and_grad.
+    `engine_opts` go to make_iterative_value_and_grad; with
+    "segmented": True they go to optim/segmented.py's
+    make_segmented_value_and_grad instead (stream mode only; "mode" may
+    be None, "auto" or "stream"; plain Gaussian likelihood only). On a
+    dense engine "segmented" warns and is ignored.
 
     With `checkpoint_path`, the flat hyper vector is saved every
     `checkpoint_every` iterations and (if `resume`) restored as the
@@ -268,10 +275,7 @@ def fit(
     ub = np.full(p, DEFAULT_UPPER) if upper is None else np.asarray(upper)
 
     opts = dict(engine_opts or {})
-    if opts.pop("segmented", False):
-        raise NotImplementedError(
-            "the segmented evaluator (optim/segmented.py) is not ported "
-            "to gp_ss_ak_torch")
+    segmented = opts.pop("segmented", False)
     n_data = int(np.shape(X)[0])
     eng = resolve_engine(engine, n_data, model)
     if (engine.lower() == "auto" and n_data > DENSE_MAX_N
@@ -283,6 +287,14 @@ def fit(
             "(no CUDA device or unsupported model); expect large "
             "memory cost — pass engine='iterative' to force the "
             "matrix-free route", stacklevel=2)
+    if segmented and eng != "iterative":
+        import warnings
+
+        warnings.warn(
+            f"segmented=True is only honoured by the iterative engine; "
+            f"the resolved engine is '{eng}' and the fit will run "
+            "un-segmented (pass engine='iterative' to force it)",
+            stacklevel=2)
     name = optimizer.upper()
     if name in DEVICE_LOOP and eng == "iterative":
         # the matrix-free objective is driven by the host L-BFGS-B, as
@@ -294,7 +306,15 @@ def fit(
         return _fit_device_loop(start, X, y, lb, ub, iters, jitter, timing)
     if eng == "iterative":
         opts.setdefault("jitter", jitter)
-        vgrad = make_iterative_value_and_grad(model, X, y, **opts)
+        if segmented:
+            mode = opts.pop("mode", None)
+            if mode not in (None, "auto", "stream"):
+                raise ValueError(
+                    f"segmented=True is stream-only; drop mode={mode!r} "
+                    "or run un-segmented")
+            vgrad = make_segmented_value_and_grad(model, X, y, **opts)
+        else:
+            vgrad = make_iterative_value_and_grad(model, X, y, **opts)
     else:
         vgrad = make_value_and_grad(model, X, y, jitter)
 

@@ -56,6 +56,22 @@ def supports_iterative(model: GPModel) -> bool:
             and model.n_params == model.kernel.n_params + lik.n_hypers)
 
 
+def fit_probes(seed: int, n: int, probes: int, slq_probes: int, device,
+               Z_logdet=None, Z_trace=None):
+    """The fixed probes of a fit, float32 on `device`: (Z_logdet (n,
+    slq_probes), Z_trace (n, probes)), each as given, else drawn from a
+    torch.Generator seeded with `seed` (SLQ) or `seed + 1` (Hutchinson)."""
+    if Z_logdet is None:
+        key = torch.Generator(device=device).manual_seed(seed)
+        Z_logdet = rademacher(key, (n, slq_probes), device)
+    if Z_trace is None:
+        key = torch.Generator(device=device).manual_seed(seed + 1)
+        Z_trace = rademacher(key, (n, probes), device)
+    f32 = torch.float32
+    return (torch.as_tensor(Z_logdet, dtype=f32, device=device),
+            torch.as_tensor(Z_trace, dtype=f32, device=device))
+
+
 def make_iterative_value_and_grad(
     model: GPModel,
     X,
@@ -70,6 +86,7 @@ def make_iterative_value_and_grad(
     precond_rank=None,
     slq_probes: int = 64,
     mode: str = "auto",
+    warm_start: bool = False,
     Z_logdet=None,
     Z_trace=None,
 ):
@@ -83,8 +100,18 @@ def make_iterative_value_and_grad(
     selects the operator (inference.iterative.choose_mode). Z_logdet
     (n, slq_probes) and Z_trace (n, probes) inject the probes; otherwise
     they are drawn from `seed`. The closure carries `.last_cg_iters`,
-    `.last_rel_residual` and `.precond_rank`; each call is a profiler
-    range, "iterative_fit.value_and_grad"."""
+    `.last_rel_residual`, `.precond_rank` and `.prev_sols`, the last
+    evaluation's solutions [alpha | A^-1 Z_trace] (n, 1 + probes; None
+    after a chol-mode one); each call is a profiler range,
+    "iterative_fit.value_and_grad".
+
+    `warm_start` starts each CG solve from `.prev_sols`, at the cost of
+    one more operator pass for its true residual. Consecutive
+    line-search points are close, so A^-1 b barely moves and the solve
+    saves iterations; the convergence test (relative to ||b||) is
+    unchanged. The solver path then depends on the history:
+    re-evaluating a point after another one agrees to the CG tolerance,
+    not bit for bit."""
     if not supports_iterative(model):
         raise ValueError(
             "iterative engine supports only Sum([ExpAns, Bias]) + "
@@ -102,15 +129,8 @@ def make_iterative_value_and_grad(
     yd = torch.as_tensor(y, dtype=f32, device=device)
     ymax = torch.max(yd)
     n = Xd.shape[0]
-    if Z_logdet is None or Z_trace is None:
-        key_logdet = torch.Generator(device=device).manual_seed(seed)
-        key_trace = torch.Generator(device=device).manual_seed(seed + 1)
-        if Z_logdet is None:
-            Z_logdet = rademacher(key_logdet, (n, slq_probes), device)
-        if Z_trace is None:
-            Z_trace = rademacher(key_trace, (n, probes), device)
-    Z_logdet = torch.as_tensor(Z_logdet, dtype=f32, device=device)
-    Z_trace = torch.as_tensor(Z_trace, dtype=f32, device=device)
+    Z_logdet, Z_trace = fit_probes(seed, n, probes, slq_probes, device,
+                                   Z_logdet, Z_trace)
 
     @record_function("iterative_fit.value_and_grad")
     def value_and_grad(x_np: np.ndarray):
@@ -131,7 +151,9 @@ def make_iterative_value_and_grad(
             cg_maxiter=cg_maxiter, probes=probes,
             lanczos_iters=lanczos_iters, chunk=chunk,
             precond_rank=precond_rank, slq_probes=slq_probes, mode=mode,
-            Z_logdet=Z_logdet, Z_trace=Z_trace)
+            Z_logdet=Z_logdet, Z_trace=Z_trace,
+            X_prev=value_and_grad.prev_sols if warm_start else None)
+        value_and_grad.prev_sols = stats.sols
         # the chain rule in one backward: Xm's map (angles, widths) plus
         # the direct sigma / bias / sn2 terms
         surrogate = (torch.sum(Xm * dXm) + ep["Sigma"] * ds
@@ -150,6 +172,7 @@ def make_iterative_value_and_grad(
 
     value_and_grad.last_cg_iters = None
     value_and_grad.last_rel_residual = None
+    value_and_grad.prev_sols = None
     value_and_grad.precond_rank = (
         auto_precond_rank(n) if precond_rank is None else precond_rank)
     return value_and_grad

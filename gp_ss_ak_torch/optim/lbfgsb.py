@@ -24,7 +24,7 @@ control flow is the right split.
 
 A numpy-only copy of gp_ss_ak_tpu/optim/lbfgsb.py (same stop reasons,
 same OptResult). The JAX package's whole-fit device loop
-(optim/jax_lbfgs.py, `-o JIT`) is not ported.
+(optim/jax_lbfgs.py, `-o JIT`) is optim/batched_lbfgs.py here.
 """
 
 from __future__ import annotations

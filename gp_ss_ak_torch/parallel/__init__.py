@@ -19,6 +19,7 @@ from gp_ss_ak_torch.parallel.mesh import (
 from gp_ss_ak_torch.parallel.multihost import (
     TwoLevelMesh,
     initialize,
+    launch_local,
     two_level_mesh,
 )
 from gp_ss_ak_torch.parallel.nlml import (
@@ -48,6 +49,7 @@ __all__ = [
     "TwoLevelMesh",
     "make_mesh",
     "initialize",
+    "launch_local",
     "two_level_mesh",
     "pad_rows",
     "row_sharding",

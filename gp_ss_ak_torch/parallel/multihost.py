@@ -5,7 +5,7 @@ torch.distributed from the environment of a multi-process launch: the
 JAX package's names (COORDINATOR_ADDRESS = host:port, NUM_PROCESSES,
 PROCESS_ID) or torchrun's (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK);
 without either it does nothing, as the JAX function does in a single
-process.
+process. `launch_local` makes such a launch on this machine.
 
 Sharding guidance, as in the JAX package: keep the kernel row axis
 inside a host, so that the block Cholesky's per-step all-gathers ride
@@ -16,6 +16,9 @@ the axis across hosts, where only rare, small reductions travel.
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -60,6 +63,61 @@ def initialize(coordinator_address: Optional[str] = None,
                             world_size=num_processes, rank=process_id,
                             timeout=timeout)
     return True
+
+
+def launch_local(argv, world: int, workdir: str, timeout: float,
+                 env: Optional[dict] = None, cwd: Optional[str] = None,
+                 poll_s: float = 0.05) -> float:
+    """Run `world` processes of `argv` on this machine as the ranks of
+    one job: each gets torchrun's variables (MASTER_ADDR and a free
+    MASTER_PORT on localhost, WORLD_SIZE, LOCAL_WORLD_SIZE, RANK,
+    LOCAL_RANK) on top of `env` (default os.environ), and writes its
+    output to workdir/rank<r>.log. The first rank to fail, or a run past
+    `timeout` seconds, stops them all and raises RuntimeError with the
+    end of every rank's log. Returns the launch's wall seconds."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = dict(os.environ if env is None else env, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                LOCAL_WORLD_SIZE=str(world))
+    os.makedirs(workdir, exist_ok=True)
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                argv, stdout=log, stderr=subprocess.STDOUT, cwd=cwd,
+                env=dict(base, RANK=str(r), LOCAL_RANK=str(r))))
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if failed is not None:
+                break
+            if time.perf_counter() - t0 > timeout:
+                failed = "timeout"
+                break
+            time.sleep(poll_s)
+        else:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    if failed is not None:
+        tails = []
+        for r, path in enumerate(logs):
+            with open(path) as f:
+                tails.append(f"--- rank {r}\n{f.read()[-4000:]}")
+        raise RuntimeError(f"{world} local ranks of {argv[1:]}: rank "
+                           f"{failed} failed\n" + "".join(tails))
+    return wall
 
 
 @dataclass(frozen=True)

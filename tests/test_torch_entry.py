@@ -1,0 +1,112 @@
+"""Port parity: gp_ss_ak_torch.entry.dryrun_multichip, the mesh dry run,
+against the JAX package's (__graft_entry__.dryrun_multichip).
+
+The port's dry run runs in place on 2 torch ranks over gloo on the CPU
+(tests/torch_mesh_worker.py), and again from this process, where it
+starts its own 2 ranks. The JAX dry run runs here on 2 of the CPU
+devices tests/conftest.py forces, and prints its numbers to 4 decimals.
+
+Tolerances: the dist NLML, float32 in both packages on 16 points, within
+1e-4 relative of the JAX line's (measured 1.7e-5 at 2 ranks); the ring's
+value draws other probes in each package, so it is held to be finite with
+its CG converged, as the JAX dry run holds its own; the 3-iteration fit
+only to improve on the start, since two float32 line searches need not
+take the same steps. The launched ranks against the in-place ones:
+rtol 1e-6 (the same computations in other processes).
+"""
+
+import contextlib
+import io
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from torch_mesh_worker import collect, start
+
+torch.set_num_threads(1)
+
+LINE = (r"dryrun_multichip\((\d+)\): nlml=(\S+) fit3=(\S+) ring=(\S+) "
+        r"predict\+2level ok")
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """(the JAX dry run's printed line, the 2 ranks' results)."""
+    import __graft_entry__ as graft
+
+    handle = start({2: {"suite": "dryrun"}},
+                   str(tmp_path_factory.mktemp("dryrun")))
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            graft.dryrun_multichip(2)
+    finally:
+        ranks = collect(handle)[2]
+    return out.getvalue(), ranks
+
+
+def test_dryrun_in_place_matches_jax(two_ranks):
+    jax_text, ranks = two_ranks
+    n, nlml, fit3, ring = re.search(LINE, jax_text).groups()
+    assert n == "2"
+    for r in ranks:
+        line = str(r["line"])
+        assert re.fullmatch(LINE, line).group(1) == "2"
+        assert float(r["nlml"]) == pytest.approx(float(nlml), rel=1e-4)
+        assert float(r["fit3"]) <= float(r["nlml"]) + 1e-6
+        assert np.isfinite(float(r["ring"])) and float(r["ring_rel"]) < 1e-4
+        assert int(r["ring_iters"]) > 0
+        # every rank returns the same numbers
+        for key in ("nlml", "fit3", "ring"):
+            assert float(r[key]) == float(ranks[0][key])
+
+
+def test_dryrun_starts_its_own_ranks(two_ranks, capsys):
+    from gp_ss_ak_torch.entry import dryrun_multichip
+
+    _, ranks = two_ranks
+    res = dryrun_multichip(2, device="cpu")
+    assert capsys.readouterr().out.strip().endswith(res["line"])
+    for key in ("nlml", "fit3", "ring"):
+        assert res[key] == pytest.approx(float(ranks[0][key]), rel=1e-6)
+
+
+def test_dryrun_on_one_rank_runs_in_place(capsys):
+    from gp_ss_ak_torch.entry import dryrun_multichip
+
+    res = dryrun_multichip(1, device="cpu")
+    assert re.fullmatch(LINE, capsys.readouterr().out.strip()).group(1) \
+        == "1"
+    assert res["fit3"] <= res["nlml"] + 1e-6 and res["ring_rel"] < 1e-4
+
+
+def test_launch_local_stops_every_rank_at_the_first_failure(tmp_path):
+    """parallel.launch_local, the one launcher of local ranks (the dry
+    run's and chip_smoke.py's): each rank sees torchrun's variables; a
+    failing rank stops the others long before the time limit, and the
+    error carries every rank's log."""
+    import sys
+    import time
+
+    from gp_ss_ak_torch.parallel import launch_local
+
+    code = ("import os, sys, time\n"
+            "r = os.environ['RANK']\n"
+            "print('rank', r, 'of', os.environ['WORLD_SIZE'],\n"
+            "      os.environ['MASTER_ADDR'], os.environ['LOCAL_RANK'])\n"
+            "sys.stdout.flush()\n"
+            "sys.exit(3) if r == sys.argv[2] else "
+            "time.sleep(float(sys.argv[1]))\n")
+    wall = launch_local([sys.executable, "-c", code, "0", "none"], 2,
+                        str(tmp_path / "ok"), timeout=60)
+    assert wall < 60
+    assert (tmp_path / "ok" / "rank0.log").read_text() \
+        == "rank 0 of 2 127.0.0.1 0\n"
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="rank 1 failed") as err:
+        launch_local([sys.executable, "-c", code, "120", "1"], 2,
+                     str(tmp_path / "bad"), timeout=60)
+    assert time.perf_counter() - t0 < 30
+    assert "rank 0 of 2" in str(err.value) and "rank 1 of 2" in str(err.value)

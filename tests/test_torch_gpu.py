@@ -31,7 +31,12 @@ card and on the CPU: the forward Grams differ by the kernel's direct
 differences against the plain version's expansion (1e-10 of the scale),
 the gradients and the fitted hyperparameters by round-off. The mesh
 engines (parallel/) run on a mesh of one rank, NCCL on the card against
-gloo on the CPU, in float64.
+gloo on the CPU, in float64. The segmented evaluator (float32, K3 on the
+card against its plain version on the CPU) is held as two float32
+implementations of one estimator (tests/test_torch_segmented.py): CG
+iterations within 1, value rel 1e-4, gradient rtol 1e-3 with atol 1e-3
+of its largest entry; on the card, its warm start against a cold start
+as tests/test_torch_segmented.py holds them on the CPU.
 """
 
 import os
@@ -713,3 +718,54 @@ def test_ring_nlml_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(vc, vh, rtol=1e-8)
     np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-8 * np.abs(gh).max())
     assert sc[0] == sh[0]
+
+
+def test_segmented_on_cuda_matches_cpu(cuda):
+    """optim/segmented.py at n = 4096 (rank auto_precond_rank = 85) on
+    the card and on the CPU with the same probes, over a warm-started
+    two-point sequence; and on the card, the second point warm against
+    cold at JAX's test's cg_tol 1e-5 (tests/test_iterative.py:743-775;
+    at the default 1e-3 two solves within tolerance leave this value,
+    small beside its terms, 1.6e-4 apart): fewer CG iterations, the same
+    value to 1e-4, the gradient to rtol 2e-3 / atol 1e-4 of its largest
+    entry, and one K3 launch per CG iteration and Lanczos step, plus
+    one for the warm residual."""
+    from gp_ss_ak_torch.model import default_model
+    from gp_ss_ak_torch.optim.segmented import make_segmented_value_and_grad
+
+    n = 4096
+    rng = np.random.default_rng(9)
+    X = rng.uniform(-1, 1, (n, 3))
+    y = np.sin(X @ np.array([1.0, 2.0, 3.0])) + 0.05 * rng.normal(size=n)
+    Zl = np.where(rng.random((n, 32)) < 0.5, -1.0, 1.0)
+    Zt = np.where(rng.random((n, 8)) < 0.5, -1.0, 1.0)
+    x = default_model(3, dtype=torch.float32, device="cpu").pack().numpy()
+    x = x.astype(np.float64)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = default_model(3, dtype=torch.float32, device=dev)
+        vg = make_segmented_value_and_grad(model, X, y, Z_logdet=Zl,
+                                           Z_trace=Zt)
+        runs[dev.type] = [(*vg(xi), vg.last_cg_iters)
+                          for xi in (x, x * (1.0 + 1e-3))]
+    for (vc, gc, kc), (vh, gh, kh) in zip(runs["cuda"], runs["cpu"]):
+        assert abs(kc - kh) <= 1
+        assert vc == pytest.approx(vh, rel=1e-4)
+        np.testing.assert_allclose(gc, gh, rtol=1e-3,
+                                   atol=1e-3 * np.abs(gh).max())
+    model = default_model(3, dtype=torch.float32, device=cuda)
+    cold, warm = (make_segmented_value_and_grad(
+        model, X, y, Z_logdet=Zl, Z_trace=Zt, cg_tol=1e-5, warm_start=w)
+        for w in (False, True))
+    before = matvec.launches
+    vc, gc = cold(x * (1.0 + 1e-3))
+    assert matvec.launches - before == cold.last_cg_iters + 16
+    warm(x)
+    before = matvec.launches
+    vw, gw = warm(x * (1.0 + 1e-3))
+    assert matvec.launches - before == warm.last_cg_iters + 16 + 1
+    assert warm.last_cg_iters < cold.last_cg_iters
+    assert warm.last_rel_residual <= 1e-5 * 1.05
+    assert vw == pytest.approx(vc, rel=1e-4)
+    np.testing.assert_allclose(gw, gc, rtol=2e-3,
+                               atol=1e-4 * np.abs(gc).max())

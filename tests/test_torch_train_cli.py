@@ -274,11 +274,60 @@ def test_train_ring_matches_jax_cli(ore, capsys, monkeypatch):
     assert np.isfinite(mse_t) and mse_t < 0.2 * var_y
 
 
+def test_train_segmented_matches_jax_cli(ore, capsys, monkeypatch):
+    """`train --engine iterative --segmented` (float32, the segmented
+    evaluator's defaults) in both CLIs on JAX's probes, handed to the
+    port through the probe draw the evaluator makes
+    (optim.iterative_fit.fit_probes), then `test` on each CLI's model.
+
+    -# 4: the two fits take the same path (4 iterations, 10 evaluations
+    at this case; the JAX CLI prints no stop reason, and the port's is
+    maxiter) and their hyperparameters agree to 2.2e-5 relative; held to
+    1e-4. Past ~5 iterations the float32 objectives, whose solves stop
+    at cg_tol = 1e-3, send the line searches apart (0.1 relative at
+    -# 6)."""
+    from gp_ss_ak_torch.optim import iterative_fit
+
+    train, test = str(ore / "train.txt"), str(ore / "test.txt")
+    jm, tm = str(ore / "jax_model"), str(ore / "torch_model")
+    k_ld, k_tr = jax.random.split(jax.random.PRNGKey(0))
+    Zl = np.array(jax.random.rademacher(k_ld, (160, 32), jnp.float32))
+    Zt = np.array(jax.random.rademacher(k_tr, (160, 8), jnp.float32))
+    draw = iterative_fit.fit_probes
+    monkeypatch.setattr(iterative_fit, "fit_probes",
+                        lambda seed, n, p, s, device, *_: draw(
+                            seed, n, p, s, device, Zl, Zt))
+    args = ["-v", "1", "train", "-#", "4", "--engine", "iterative",
+            "--segmented", train]
+    assert jax_main(args + [jm]) == 0
+    jax_out = capsys.readouterr().out
+    assert torch_main(args[:2] + ["train", "--device", "cpu"] + args[3:]
+                      + [tm]) == 0
+    torch_out = capsys.readouterr().out
+    pat = r"-logL: \S+ -> \S+ \((\d+) iters, (\d+) evals"
+    assert re.search(pat, torch_out).groups() \
+        == re.search(pat, jax_out).groups() == ("4", "10")
+    assert "stop: maxiter" in torch_out
+    assert _structure(tm) == _structure(jm)
+    np.testing.assert_allclose(_model_values(tm), _model_values(jm),
+                               rtol=1e-4)
+    mse, var_y = (float(re.search(rf"{k}: (\S+)", torch_out).group(1))
+                  for k in ("Mean Square Error of training",
+                            "Var MSE Train"))
+    assert np.isfinite(mse) and mse < var_y
+    assert jax_main(["test", "--no-plot", test, jm, train]) == 0
+    jax_test = _numbers(capsys.readouterr().out)
+    assert torch_main(["test", "--no-plot", "--device", "cpu", test, tm,
+                       train]) == 0
+    torch_test = _numbers(capsys.readouterr().out)
+    for mse, var_y in (jax_test, torch_test):
+        assert np.isfinite(mse) and mse < var_y
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--segmented"], "optim/segmented.py"),
     (["-lf", "Student"], "Unknown likelihood function"),
     (["--init-params", "1,2"], "--init-params needs 9 values"),
-], ids=["segmented", "unknown_lik", "init_params"])
+], ids=["unknown_lik", "init_params"])
 def test_train_refusals_exit_1(ore, capsys, extra, msg):
     rc = torch_main(["train", "--device", "cpu", *extra,
                      str(ore / "train.txt"), str(ore / "m")])

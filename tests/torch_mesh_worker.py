@@ -1,5 +1,5 @@
 """The ranks of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_ring.py).
+tests/test_torch_ring.py, tests/test_torch_entry.py).
 
     python tests/torch_mesh_worker.py WORKDIR WORLD [WORLD ...]
 
@@ -228,6 +228,14 @@ def suite_ring(mesh, data, out):
         out["two_v"], out["two_g"] = v.numpy(), g.numpy()
 
 
+def suite_dryrun(mesh, data, out):
+    from gp_ss_ak_torch.entry import dryrun_multichip
+
+    res = dryrun_multichip(mesh.size, device="cpu")
+    for key, val in res.items():
+        out[key] = np.asarray(val)
+
+
 def start(inputs: dict, workdir: str):
     """Launch the ranks of every world size in `inputs` ({world: data};
     data's "suite" key names the suite) in one process group of their
@@ -302,7 +310,8 @@ def run_rank(rank: int, world: int, port: int, wdir: str) -> int:
     with np.load(os.path.join(wdir, "in.npz")) as f:
         data = dict(f)
     out = {}
-    {"dist": suite_dist, "ring": suite_ring}[str(data["suite"])](
+    {"dist": suite_dist, "ring": suite_ring,
+     "dryrun": suite_dryrun}[str(data["suite"])](
         mesh, data, out)
     np.savez(os.path.join(wdir, f"rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "gp_ss_ak_tpu" not in sys.modules
