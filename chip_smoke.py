@@ -9,6 +9,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
     python3 chip_smoke.py --only parallel (phases 1, 2, 25-30)
     python3 chip_smoke.py --only segmented (phases 1, 2, 31-34)
+    python3 chip_smoke.py --only examples (phases 1, 2, 35-38)
 
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
@@ -140,8 +141,29 @@ Phases, each of which raises on failure (nothing is caught):
      MSE on 4096 held-out composites through IterativePredictor;
  34. K3 at N = 100000, B = 9 and 32, against its plain version in float64
      (with both controls) and timed beside its bound.
-Every bound is the largest of four terms (`bound`): bytes, FP32 work
-outside any product, SFU work and the product on the tensor cores at
+ 35. the full example workflow (gp_ss_ak_torch/examples/full_workflow.py)
+     at N = 16384 training and 4096 test composites, 5 iterations: the
+     dense fit, the model file, Predictor on the test set (MSE < 0.2
+     var(y)), NUTS at the example's 80 points and 2 chains, 5 + 5
+     transitions;
+ 36. the Bayes example workflow at its own 40 points: NUTS with 4 chains
+     on a mesh of one rank, 8 + 8 transitions (acceptance in (0.3, 1),
+     every draw finite);
+ 37. the distributed example workflow in float32 on a world of one at
+     N = 16384, 3 iterations, with its own check of the dist predict
+     against the ring's posterior mean;
+ 38. the ring example workflow at N = 65536, 2 iterations, its posterior
+     mean's CG residual printed.
+The matrix-free phases also hold the solves' verdicts
+(inference.iterative.solve_state): phase 12 prints sn2 and the
+unconverged flag for each evaluation, phase 23 requires gemm_bf16's
+failed solve at the case's noise to give a NaN value and gradient, and
+phase 33 requires the CLI's one stderr warning to count exactly the
+evaluations whose residual is above cg_tol.
+Every bound is the largest of three terms (`bound`): bytes, the SFU and
+FP32 work with the ex2 split at its best between MUFU and a polynomial
+on the FP32 pipes ("SFU/FMA", `sfu_fma_ms`; K2's and K3's lines also
+print the MUFU-only term) and the product on the tensor cores at
 float32 accuracy; the line says which term sets it.
 Each counted path runs with the launch counts set to 0 just before it
 and read just after. The line before the last is the JSON kernel report;
@@ -164,6 +186,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -198,6 +221,7 @@ TOL_K3 = 1.5e-7
 N_K2_PATH = 32768
 K2_PATH_RES = 4.0               # its true residual's limit, x cg_tol
 N_ITER_FIT = N_ITER_TRAIN
+ITER_FIT_CG_TOL = 1e-4          # the matrix-free fit's default cg_tol
 # stream vs gemm mode of nlml_and_grad_iterative at N_TRAIN with the same
 # probes: tests/test_iterative.py:355-365's tolerances for two modes
 MODE_VAL_REL, MODE_VAL_ABS = 1e-4, 0.05
@@ -213,6 +237,14 @@ MODE_XM_REL = 1e-2
 # card's SM count and maximum SM clock (card_rates)
 PEAK_BYTES_S, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
 SFU_PER_SM_CLOCK = 16
+# an ex2 computed on the FP32 pipes instead of MUFU, at MUFU's float32
+# accuracy (ex2.approx, ~2 ulp): x = i + f with i = floor(x) (1 FRND) and
+# f = x - i (1 FADD), 2^f by a degree-5 minimax polynomial in Horner form
+# (5 FFMA), 2^i added to the exponent bits by integer ops, which run on
+# the INT32 pipe and are not counted (so the term stays a floor): 7
+# instruction slots of the FP32 pipes, which take PEAK_FP32_FLOPS / 2
+# instructions a second
+POLY_EX2_FP32_SLOTS = 7
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
@@ -343,6 +375,22 @@ N_SEG, N_SEG_TEST = 100000, 4096
 STREAM_OPTS = dict(lanczos_iters=16, cg_tol=1e-3, slq_probes=32, probes=8)
 SEG_STEP, SEG_WARM_RTOL, SEG_WARM_GRAD, SEG_TRAIN_ITERS = 1e-3, 1e-4, 2e-3, 2
 K3_SEG_WIDTHS = ((9, 5), (32, 5))
+# the example workflows (gp_ss_ak_torch/examples): the full workflow at
+# the dense path's full width (N_TRAIN training and N_TEST test
+# composites, EX_FULL_ITERS iterations), its Bayes part at the example's
+# 80 points and 2 chains; the Bayes workflow at its own 40 points and 4
+# chains; the distributed workflow in float32 on a world of one at
+# N_TRAIN for EX_DIST_ITERS iterations; the ring workflow at N_ITER_TRAIN
+# for EX_RING_ITERS iterations, as phase 29's fit_ring. The NUTS sample
+# counts (warmup, samples) are cut from the examples' (120, 80) and
+# (150, 150) to EX_FULL_NUTS and EX_BAYES_NUTS: at their own counts most
+# trees reach 255 leaves, 49579 and 45737 batched evaluations of ~7 ms
+# (325 s and 338 s on an H100), where the phases' whole budget is ~90 s;
+# tests/test_torch_gpu.py runs both at their own counts
+EX_FULL_ITERS, EX_DIST_ITERS, EX_RING_ITERS = 5, 3, 2
+EX_FULL_NUTS, EX_BAYES_NUTS = (5, 5), (8, 8)
+# the acceptance the Bayes workflow's NUTS must show, mean over chains
+EX_ACCEPT = (0.3, 1.0)
 # the live (chunk, N) float32 blocks of the gradient contraction with
 # their saved tensors and cotangents, counted from
 # inference/iterative._grad_contraction (d2, the clamp, the diagonal
@@ -401,27 +449,59 @@ def card_rates():
             "clock_hz": float(mhz) * 1e6}
 
 
+def sfu_fma_ms(work, sms: int, clock_hz: float):
+    """(MUFU-only ms, balanced ms) of the SFU and FP32 work of `work`
+    (see `bound`), whose SFU operations are one rsqrt and one ex2 an
+    entry, as in each of K1, K2 and K3.
+
+    MUFU-only prices every rsqrt and ex2 at MUFU's 16 per SM per clock,
+    beside the FP32 work on its pipes: a floor only for a kernel that
+    computes both on MUFU. Balanced lets x of the ex2 stay on MUFU and
+    computes the rest as a polynomial on the FP32 pipes
+    (POLY_EX2_FP32_SLOTS slots each, as FlashAttention-4 does), and takes
+    the best x, where the two units finish together (clamped to [0, all
+    ex2]). The FP32 work counts as FMAs (two flops a slot), a floor."""
+    _, fp32, sfu, _ = work
+    mufu = sms * SFU_PER_SM_CLOCK * clock_hz          # operations / s
+    slots = PEAK_FP32_FLOPS / 2.0              # FP32 instructions / s
+    rsqrt = ex2 = sfu / 2.0
+    f = fp32 / 2.0
+    c = POLY_EX2_FP32_SLOTS
+    mufu_only = max((rsqrt + ex2) / mufu, f / slots)
+    x = (mufu * (f + c * ex2) - slots * rsqrt) / (slots + c * mufu)
+    x = min(max(x, 0.0), ex2)
+    balanced = max((rsqrt + x) / mufu, (f + c * (ex2 - x)) / slots)
+    return mufu_only * 1e3, balanced * 1e3
+
+
 def bound(work, sms: int, clock_hz: float):
     """(bound_ms, term): the least time the card could take for `work` =
     (bytes moved, each input read once and each output written once;
     FP32 operations outside any product; SFU operations; product
     operations at float32 accuracy on the tensor cores, three TF32
-    products each), the largest of its four terms, and which term it
-    is: "bytes", "FP32", "SFU" or "tensor".
+    products each), the largest of its three terms, and which term it
+    is: "bytes", "SFU/FMA" or "tensor".
 
-    The SFU term prices each rsqrt and ex2 at the MUFU unit's 16 per SM
-    per clock, so it is a floor only for a kernel that computes both on
-    MUFU. A kernel can move part of its ex2 onto the FP32 pipes as a
-    polynomial (FlashAttention-4 does), whose combined rate is higher;
-    this term does not count that, so it can stand above such a
-    kernel's true floor."""
-    nbytes, fp32, sfu, tensor = work
+    "SFU/FMA" is `sfu_fma_ms`'s balanced term: the SFU and FP32 work
+    together, with the ex2 split at its best between MUFU and a
+    polynomial on the FP32 pipes. The MUFU-only SFU term stands above
+    the floor of a kernel that moves ex2 onto the FP32 pipes; the K2
+    and K3 lines print both."""
+    nbytes, _, _, tensor = work
     terms = {"bytes": nbytes / PEAK_BYTES_S,
-             "FP32": fp32 / PEAK_FP32_FLOPS,
-             "SFU": sfu / (sms * SFU_PER_SM_CLOCK * clock_hz),
+             "SFU/FMA": sfu_fma_ms(work, sms, clock_hz)[1] / 1e3,
              "tensor": tensor / PEAK_TF32_FLOPS}
     term = max(terms, key=terms.get)
     return terms[term] * 1e3, term
+
+
+def sfu_shares(work, ms: float) -> str:
+    """The kernel's share of both SFU terms of `sfu_fma_ms`, printed."""
+    mufu_only, balanced = sfu_fma_ms(work, **card_rates())
+    return (f"SFU bounds: MUFU-only {mufu_only:.4f} ms (kernel at "
+            f"{mufu_only / ms:.3f}), balanced with "
+            f"{POLY_EX2_FP32_SLOTS}-slot polynomial ex2 {balanced:.4f} ms "
+            f"(kernel at {balanced / ms:.3f})")
 
 
 def gram_work(n: int, m: int, d: int):
@@ -775,7 +855,8 @@ def k3_times(device, seed: int, widths=K3_WIDTHS, n: int = N_ITER_TRAIN):
         print(f"K3 time N={n} B={b} d=3 f32: kernel {ms:.4f} ms "
               f"({pairs:.1f} Gpairs/s, {tflops:.2f} TFLOP/s of K.V), "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (set by "
-              f"{b_by}), kernel at {b_ms / ms:.3f} of it")
+              f"{b_by}), kernel at {b_ms / ms:.3f} of it; "
+              f"{sfu_shares(matmat_work(n, 3, b), ms)}")
         out[b] = (ms, plain_ms, b_ms, b_by)
     return out, Xk, scal, V
 
@@ -870,7 +951,8 @@ def phase_k2(device, seed: int):
                   f"({n * n / (ms * 1e-3) / 1e9:.1f} Gpairs/s), bound "
                   f"{b_ms:.4f} ms (set by {b_by}, kernel at "
                   f"{b_ms / ms:.3f} of it), K3 at B = 1 {k3_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms")
+                  f"plain {plain_ms:.4f} ms; "
+                  f"{sfu_shares(matvec_work(n, 3), ms)}")
             report[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, k3_ms=k3_ms)
         del X, Xk, v, y, y2, ref
@@ -1315,26 +1397,44 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     from gp_ss_ak_torch.ops import matvec
     from gp_ss_ak_torch.optim import fit
 
+    from gp_ss_ak_torch.optim import api
+
     model, _, Xtrs, ytrs, _, _ = _load_case(device, torch.float32, train,
                                             test, model_path)
     print(f"mode thresholds on this card (chol, gemm, gemm_bf16 max N): "
           f"{ti._mode_thresholds(device)}; CPU defaults "
           f"{ti._mode_thresholds(None)}")
     torch.cuda.reset_peak_memory_stats()
-    timing = {}
+    timing, log = {}, []
     before = matvec.launches
-    t0 = time.perf_counter()
-    fitted, res = fit(model, Xtrs, ytrs, iters=2, engine="iterative",
-                      engine_opts={"mode": "stream"}, timing=timing)
-    wall = time.perf_counter() - t0
+    make = api.make_iterative_value_and_grad
+    api.make_iterative_value_and_grad = _recording(make, log)
+    try:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always", ti.UnconvergedSolveWarning)
+            fitted, res = fit(model, Xtrs, ytrs, iters=2,
+                              engine="iterative",
+                              engine_opts={"mode": "stream"}, timing=timing)
+        wall = time.perf_counter() - t0
+    finally:
+        api.make_iterative_value_and_grad = make
+    seen = [w for w in seen
+            if issubclass(w.category, ti.UnconvergedSolveWarning)]
     k3 = matvec.launches - before
     print(f"iterative fit N={Xtrs.shape[0]} (stream): -logL "
           f"{res.trace[0]:.6f} -> {res.fun:.6f}, {res.n_iters} iterations, "
-          f"{res.n_evals} evaluations, stop {res.stop_reason}; CG "
-          f"(iterations, rel residual) per evaluation {timing['cg']}; "
-          f"evaluation s {[round(w, 3) for w in timing['eval_s']]}; wall "
-          f"{wall:.3f} s; K3 launches {k3}; peak device memory "
+          f"{res.n_evals} evaluations, stop {res.stop_reason}; per "
+          f"evaluation (sn2, CG iterations, rel residual, rank, s): "
+          f"{_evaluation_text(log, ITER_FIT_CG_TOL)}; unconverged "
+          f"{timing['unconverged_evals']} of {res.n_evals}, largest rel "
+          f"residual {timing['max_rel_residual']:.3e}; warnings "
+          f"{[str(w.message) for w in seen]}; wall {wall:.3f} s; K3 "
+          f"launches {k3}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(len(seen) == (1 if timing["unconverged_evals"] else 0),
+           f"iterative fit: {len(seen)} warnings for "
+           f"{timing['unconverged_evals']} unconverged evaluations")
     _check(all(np.isfinite(v) for v in res.trace) and np.isfinite(res.fun)
            and res.fun <= res.trace[0], "iterative fit: bad -logL")
     _check(bool(np.all(np.isfinite(fitted.pack().cpu().numpy()))),
@@ -1610,7 +1710,7 @@ def phase_iter_setup_split(server, ytrs):
     piv_s = time.perf_counter() - t0
     y = torch.as_tensor(ytrs, dtype=torch.float32, device=server.device)
     t0 = time.perf_counter()
-    _, it = server._solve(y[:, None])
+    _, it, _ = server._solve(y[:, None])
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     print(f"iterative setup split (host clock, synchronized): pivoted "
@@ -2638,6 +2738,7 @@ def phase_gemm_bf16(device, seed: int, itrain: str, itest: str,
             peak = torch.cuda.max_memory_allocated()
             out[sn2, mode] = ([float(x) for x in grads[:3]], grads[3], st,
                               seen)
+            out[sn2, mode, "value"] = float(val)
             print(f"mode {mode} at N={n}, sn2 {sn2}: value {float(val):.6f} "
                   f"(not gated: the bf16 SLQ logdet is biased), d(sigma, "
                   f"bias, sn2) {out[sn2, mode][0]}, {st.cg_iters} CG "
@@ -2661,6 +2762,20 @@ def phase_gemm_bf16(device, seed: int, itrain: str, itest: str,
                f"gemm_bf16 evaluation: expected {want[0]} K1 launches (K in "
                f"blocks of {rows} rows) and no K2 or K3, and gemm's one; saw "
                f"(K1, K2, K3) = {seen_b} and {seen_g}")
+    # at the case's noise A_bf16 is indefinite and CG fails (residual
+    # >= 1): the evaluation is NaN, where the JAX package returns its
+    # zero start's gradient; at BF16_SN2 it converges
+    _, _, st_case, _ = out[SN2, "gemm_bf16"]
+    val_case = out[SN2, "gemm_bf16", "value"]
+    print(f"gemm_bf16 at sn2 {SN2}: rel residual "
+          f"{float(st_case.rel_residual):.3e}, value {val_case!r}, solve "
+          f"{ti.solve_state(st_case.rel_residual, ti.BF16_CG_TOL_FLOOR)}")
+    _check(ti.solve_state(st_case.rel_residual, ti.BF16_CG_TOL_FLOOR)
+           == "failed" and np.isnan(val_case)
+           and all(np.isnan(x) for x in out[SN2, "gemm_bf16"][0])
+           and bool(torch.isnan(out[SN2, "gemm_bf16"][1]).all()),
+           f"gemm_bf16 at sn2 {SN2}: a failed solve must give a NaN value "
+           "and gradient")
     _check(float(stb.rel_residual) <= ti.BF16_CG_TOL_FLOOR
            and stb.cg_iters < 800,
            f"gemm_bf16 CG at sn2 {BF16_SN2} did not reach its floor")
@@ -3616,23 +3731,45 @@ def phase_seg_warm(model, X, y, cold, x, v1, k1):
     return kc2, kw2
 
 
+class _Recorded:
+    """A matrix-free value_and_grad that appends (sn2, CG iterations,
+    rel residual, rank, host seconds) for every evaluation to `log`; its
+    other attributes (cg_tol, last_rel_residual, ...) read through, so
+    optim.fit judges its solves as it judges the closure's."""
+
+    def __init__(self, vg, log):
+        self.vg, self.log = vg, log
+
+    def __call__(self, x):
+        t0 = time.perf_counter()
+        out = self.vg(x)
+        self.log.append((float(x[-1]), self.vg.last_cg_iters,
+                         self.vg.last_rel_residual, self.vg.precond_rank,
+                         time.perf_counter() - t0))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["vg"], name)
+
+
 def _recording(make, log):
-    """make_segmented_value_and_grad that appends (sn2, CG iterations,
-    rel residual, rank, host seconds) for every evaluation to `log`."""
+    """`make` (make_iterative_value_and_grad or
+    make_segmented_value_and_grad) whose closures record into `log`
+    (_Recorded)."""
     def made(model, X, y, **kw):
-        vg = make(model, X, y, **kw)
-
-        def call(x):
-            t0 = time.perf_counter()
-            out = vg(x)
-            log.append((float(x[-1]), vg.last_cg_iters,
-                        vg.last_rel_residual, vg.precond_rank,
-                        time.perf_counter() - t0))
-            return out
-
-        return call
+        return _Recorded(make(model, X, y, **kw), log)
 
     return made
+
+
+def _evaluation_text(log, cg_tol: float) -> str:
+    """Per evaluation of `log` (_Recorded): sn2, CG iterations, rel
+    residual, rank, seconds, and "UNCONVERGED" where the residual is not
+    within cg_tol."""
+    return "; ".join(
+        f"({s2:.6g}, {k}, {r:.3e}, {rk}, {t:.3f}"
+        f"{'' if r <= cg_tol else ', UNCONVERGED'})"
+        for s2, k, r, rk, t in log)
 
 
 def phase_seg_train(device, case, workdir: str):
@@ -3657,10 +3794,11 @@ def phase_seg_train(device, case, workdir: str):
     make = api.make_segmented_value_and_grad
     api.make_segmented_value_and_grad = _recording(make, log)
     torch.cuda.reset_peak_memory_stats()
-    text = io.StringIO()
+    text, err = io.StringIO(), io.StringIO()
     try:
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
+        with contextlib.redirect_stdout(text), \
+                contextlib.redirect_stderr(err):
             rc = cli.main(["-v", "1", "train", "-#", str(SEG_TRAIN_ITERS),
                            "--engine", "iterative", "--segmented", train,
                            out_model])
@@ -3668,20 +3806,34 @@ def phase_seg_train(device, case, workdir: str):
     finally:
         api.make_segmented_value_and_grad = make
     peak = torch.cuda.max_memory_allocated()
-    text = text.getvalue()
+    text, err = text.getvalue(), err.getvalue()
     print("cli train --segmented:", " | ".join(text.strip().splitlines()),
-          f"(rc {rc}, {wall:.3f} s wall, file IO included)")
+          f"(rc {rc}, {wall:.3f} s wall, file IO included); stderr:",
+          " | ".join(err.strip().splitlines()) or "(empty)")
     _check(rc == 0, f"cli train --segmented at N={N_SEG} returned {rc}")
     m = re.search(r"-logL: (\S+) -> (\S+) \((\d+) iters, (\d+) evals, "
                   r"stop: (\S+)\)", text)
     _check(m is not None, "cli train --segmented printed no -logL line")
     first, last, evals = float(m.group(1)), float(m.group(2)), \
         int(m.group(4))
+    cg_tol = STREAM_OPTS["cg_tol"]
     print(f"segmented train at N={N_SEG}: -logL {first} -> {last}, "
           f"{evals} evaluations, stop {m.group(5)}; per evaluation (sn2, "
           f"CG iterations, rel residual, rank, s): "
-          + "; ".join(f"({s2:.6g}, {k}, {r:.3e}, {rk}, {t:.3f})"
-                      for s2, k, r, rk, t in log))
+          + _evaluation_text(log, cg_tol))
+    # the CLI's one stderr line for the fit's unconverged solves counts
+    # exactly the evaluations whose residual is above cg_tol
+    bad = sum(1 for _, _, r, _, _ in log if not r <= cg_tol)
+    w = re.search(r"^Warning: fit: (\d+) of (\d+) CG solves ended "
+                  r"unconverged, largest relative residual (\S+) > cg_tol "
+                  r"(\S+)", err, re.M)
+    said = (0, evals) if w is None else (int(w.group(1)), int(w.group(2)))
+    print(f"segmented train: {bad} of {evals} evaluations above cg_tol "
+          f"{cg_tol}; the CLI's warning says {said[0]} of {said[1]}")
+    _check(said == (bad, evals) and (w is None or float(w.group(4))
+                                     == cg_tol),
+           f"the CLI's unconverged count {said} is not the log's "
+           f"({bad}, {evals})")
     bound = segmented_peak_bound(N_SEG, auto_precond_rank(N_SEG))
     print(f"segmented train: peak device memory {peak / 2**30:.3f} GiB "
           f"(limit {bound / 2**30:.3f} GiB from the code; a float32 K "
@@ -3749,16 +3901,131 @@ def run_segmented(device, seed: int, zero, counts):
 
 
 
+def phase_ex_full(zero, counts):
+    """Phase 35: the full workflow on the card at N_TRAIN training and
+    N_TEST test composites (the dense fit through K1, potrf and the QW
+    adjoint; the model file and statistics; Predictor on the test set;
+    NUTS at the example's 80 points and 2 chains through the batched
+    K1). Gates: the test MSE below MSE_MAX var(y); K1 launched by the
+    fit, the server (A and the cross-Gram) and the sampler (batched).
+    Returns the K1 launches."""
+    from gp_ss_ak_torch.examples import full_workflow
+
+    zero()
+    t0 = time.perf_counter()
+    out = full_workflow.main(n=N_TRAIN + N_TEST, n_train=N_TRAIN,
+                             iters=EX_FULL_ITERS, n_warmup=EX_FULL_NUTS[0],
+                             n_samples=EX_FULL_NUTS[1])
+    wall = time.perf_counter() - t0
+    k1, k1_batched = counts()
+    res = out["res"]
+    print(f"example full_workflow at N={N_TRAIN}/{N_TEST}: -logL "
+          f"{res.trace[0]:.6f} -> {res.fun:.6f} ({res.n_iters} iterations, "
+          f"{res.n_evals} evaluations, stop {res.stop_reason}), test MSE "
+          f"{out['mse']:.6g} = {out['mse'] / out['var_y']:.4f} var(y) "
+          f"(limit {MSE_MAX}), NUTS accept {out['accept']:.3f}, mixed MSE "
+          f"{out['bayes_mse']:.4g}; {wall:.3f} s; K1 launches {k1}, "
+          f"batched {k1_batched}")
+    _check(np.isfinite(out["mse"]) and out["mse"] < MSE_MAX * out["var_y"],
+           f"full workflow test MSE {out['mse']} not below {MSE_MAX} var(y)")
+    _check(k1 >= res.n_evals + 2 and k1_batched > 0,
+           f"full workflow: K1 launches {k1} (fit {res.n_evals} + server "
+           f"2 at least), batched {k1_batched}")
+    _check(bool(np.isfinite(out["theta"].cpu().numpy()).all()),
+           "full workflow: non-finite hyperposterior samples")
+    return k1 + k1_batched
+
+
+def phase_ex_bayes(zero, counts):
+    """Phase 36: the Bayes workflow at its own data size (40 points, 4
+    chains on a mesh of one rank, EX_BAYES_NUTS transitions). Gates:
+    every draw finite, the mean acceptance inside EX_ACCEPT. Returns the
+    K1 launches."""
+    from gp_ss_ak_torch.examples import bayes_workflow
+
+    zero()
+    t0 = time.perf_counter()
+    out = bayes_workflow.main(n_warmup=EX_BAYES_NUTS[0],
+                              n_samples=EX_BAYES_NUTS[1])
+    wall = time.perf_counter() - t0
+    k1, k1_batched = counts()
+    accept = float(out["accept"].mean())
+    print(f"example bayes_workflow: {tuple(out['theta'].shape)} samples, "
+          f"mean accept {accept:.3f} (gate {EX_ACCEPT}), max split R-hat "
+          f"{float(np.max(out['diag']['rhat'])):.4f}; {wall:.3f} s; K1 "
+          f"launches {k1}, batched {k1_batched}")
+    _check(bool(np.isfinite(out["theta"].cpu().numpy()).all()),
+           "bayes workflow: non-finite draws")
+    _check(EX_ACCEPT[0] < accept < EX_ACCEPT[1],
+           f"bayes workflow: acceptance {accept} outside {EX_ACCEPT}")
+    return k1 + k1_batched
+
+
+def phase_ex_mesh(zero, counts):
+    """Phases 37-38: the distributed workflow in float32 on a world of
+    one (NCCL) at N_TRAIN, EX_DIST_ITERS iterations (the dist panel
+    through K1's cross entry; gate: its own dist-against-ring check),
+    and the ring workflow at N_ITER_TRAIN, EX_RING_ITERS iterations
+    (gates: finite, its own MSE check; its posterior mean's CG residual
+    printed). Returns the K1 launches."""
+    from gp_ss_ak_torch.examples import distributed_workflow, ring_workflow
+
+    zero()
+    t0 = time.perf_counter()
+    d = distributed_workflow.main(n=N_TRAIN, iters=EX_DIST_ITERS)
+    wall = time.perf_counter() - t0
+    k1_d = counts()[0]
+    print(f"example distributed_workflow at N={N_TRAIN} f32: NLML "
+          f"{d['res'].trace[0]:.6f} -> {d['res'].fun:.6f} "
+          f"({d['res'].n_evals} evaluations), dist - ring means "
+          f"{np.abs(d['mu'] - d['mu_ring']).max():.3e} (limit 1e-3), ring "
+          f"CG {d['cg_iters']} iterations; {wall:.3f} s; K1 launches {k1_d}")
+    _check(k1_d > 0, "distributed workflow launched no K1")
+    zero()
+    t0 = time.perf_counter()
+    r = ring_workflow.main(n=N_ITER_TRAIN, iters=EX_RING_ITERS)
+    wall = time.perf_counter() - t0
+    k1_r = counts()[0]
+    print(f"example ring_workflow at N={N_ITER_TRAIN} f32: NLML "
+          f"{r['res'].trace[0]:.6f} -> {r['res'].fun:.6f} "
+          f"({r['res'].n_evals} evaluations), held-out MSE {r['mse']:.4g} "
+          f"(limit 0.1), posterior-mean CG {r['cg_iters']} iterations, "
+          f"relative residual {r['cg_rel']:.3e}; {wall:.3f} s; K1 launches "
+          f"{k1_r}")
+    _check(np.isfinite(r["res"].fun) and np.isfinite(r["mse"])
+           and np.isfinite(r["cg_rel"]), "ring workflow not finite")
+    _check(k1_r > 0, "ring workflow launched no K1")
+    return k1_d + k1_r
+
+
+def run_examples(zero, counts_k1):
+    """Counted: phases 35-38, the four example workflows on the card,
+    each read from zero. Returns their K1 launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    k1 = phase_ex_full(zero, counts_k1)
+    k1 += phase_ex_bayes(zero, counts_k1)
+    torch.cuda.empty_cache()
+    k1 += phase_ex_mesh(zero, counts_k1)
+    torch.cuda.empty_cache()
+    print(f"example phases done in {time.perf_counter() - t0:.1f} s; K1 "
+          f"launches {k1}")
+    return k1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("k3", "warped", "batched",
-                                       "sparse", "parallel", "segmented"),
+                                       "sparse", "parallel", "segmented",
+                                       "examples"),
                     help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
                          "sparse: phases 1, 2 and 19-24; parallel: phases "
                          "1, 2 and 25-30; segmented: phases 1, 2 and "
-                         "31-34. None prints a result")
+                         "31-34; examples: phases 1, 2 and 35-38. None "
+                         "prints a result")
     # one rank of the phases' multi-rank launch (launch_mesh_ranks)
     ap.add_argument("--mesh-io", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3806,6 +4073,12 @@ def main(argv=None) -> int:
                            N_ITER_TEST)
         run_parallel(device, args.seed, take_k1, dense, icase)
         print(f"parallel phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    if args.only == "examples":
+        run_examples(zero, counts_k1)
+        print(f"example phases passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3963,6 +4236,9 @@ def main(argv=None) -> int:
     k1_launches += k1_g
     k3_launches += k3_g
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_seg["max_abs_err"])
+
+    # counted runs 20-23, the four example workflows
+    k1_launches += run_examples(zero, counts_k1)
 
     print(f"smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -54,13 +54,20 @@ segmented evaluator's route (optim/segmented.py): the stream evaluator
 with its defaults, each CG solve warm-started from the last one's
 solutions; its training-set mean comes from the matrix-free server,
 since the fit ran in stream mode at any N.
+
+A CG solve that ends above its tolerance (inference.iterative's
+UnconvergedSolveWarning: the fit's count and largest residual, or a
+server's first such solve) prints one line, "Warning: ...", on stderr,
+so stdout stays the JAX CLI's. The JAX CLI says nothing there.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import sys
+import warnings
 from dataclasses import replace
 
 import numpy as np
@@ -462,6 +469,26 @@ def _plot(model_name: str, y, yh, std) -> None:
     plt.close(fig)
 
 
+@contextlib.contextmanager
+def _solve_warnings_on_stderr():
+    """Print every UnconvergedSolveWarning as one "Warning: ..." line on
+    stderr; other warnings go through as they would."""
+    from gp_ss_ak_torch.inference.iterative import UnconvergedSolveWarning
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always", UnconvergedSolveWarning)
+        show = warnings.showwarning
+
+        def shown(message, category, *args, **kw):
+            if issubclass(category, UnconvergedSolveWarning):
+                print(f"Warning: {message}", file=sys.stderr, flush=True)
+            else:
+                show(message, category, *args, **kw)
+
+        warnings.showwarning = shown
+        yield
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     # Clean termination on user errors — the reference's
@@ -469,7 +496,8 @@ def main(argv=None) -> int:
     # without a Python traceback. `-v 3` keeps the full traceback.
     cmd = {"train": cmd_train, "test": cmd_test}[args.command]
     try:
-        return cmd(args)
+        with _solve_warnings_on_stderr():
+            return cmd(args)
     except FileNotFoundError as e:
         print(f"Error: file not found: {e.filename or e}", file=sys.stderr)
     except (ValueError, KeyError) as e:

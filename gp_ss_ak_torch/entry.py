@@ -72,7 +72,8 @@ def entry(dtype=torch.float32, device="cuda"):
 def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> dict:
     """Exercise the mesh engines over `n_devices` ranks and print the JAX
     dry run's final line (on rank 0). Returns {"nlml", "fit3", "ring",
-    "ring_iters", "ring_rel", "line"}, the same on every rank.
+    "ring_iters", "ring_rel", "line"}, the same on every rank, and
+    "two_level", whether this rank ran the two-level batch.
 
     In place when torch.distributed already runs a world of n_devices
     ranks (with that world's backend unless `backend` names another), or
@@ -80,8 +81,9 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None) -> dict:
     one card each, when `device` is a CUDA device and the machine has
     that many cards; else gloo, every rank on the one `device` (on a
     card, collectives staged through the host). The two-level batch
-    (2 chains x n/2 rows) needs an even n; an odd n skips it, where the
-    JAX dry run puts it on the first 2 (n // 2) devices."""
+    (2 chains x n // 2 rows) runs on the first 2 (n // 2) ranks for any
+    n >= 2, as the JAX dry run puts it on its first 2 (n // 2) devices;
+    at an odd n the last rank skips it."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -153,11 +155,14 @@ def _dryrun_rank(n_devices: int, device, backend) -> dict:
     assert bool(torch.isfinite(gr).all()), "ring grad not finite"
     assert float(st[1]) < 1e-4, "ring CG did not converge"
 
-    # the two-level (chains x rows) mesh: a chain-parallel NLML batch
-    if n_devices >= 2 and n_devices % 2 == 0:
+    # the two-level (chains x rows) mesh: a chain-parallel NLML batch on
+    # the first 2 (n // 2) ranks; every rank takes part in building it
+    two = None
+    if n_devices >= 2:
         n_rows = n_devices // 2
         two = tp.two_level_mesh(rows_per_host=n_rows, device=mesh.device,
-                                backend=mesh.backend)
+                                backend=mesh.backend, n_ranks=2 * n_rows)
+    if two is not None:
         n2 = 8 * n_rows
         X2l, y2l, _, _ = tp.shard_training_data(
             two.rows, torch.as_tensor(X[:n2]), torch.as_tensor(y[:n2]),
@@ -175,7 +180,7 @@ def _dryrun_rank(n_devices: int, device, backend) -> dict:
         print(line, flush=True)
     return {"nlml": v, "fit3": float(res.fun), "ring": float(vr),
             "ring_iters": int(st[0]), "ring_rel": float(st[1]),
-            "line": line}
+            "line": line, "two_level": two is not None}
 
 
 def _launch_ranks(n_devices: int, device, backend) -> dict:

@@ -41,12 +41,21 @@ What differs from JAX, and why:
   * The JAX functions' tile sizes (tm, tn) and `interpret` switch have
     no counterpart: the CUDA kernels pick their own tiles and CPU
     tensors take the plain versions.
+  * A solve that stops short is judged (`solve_state`), where JAX uses
+    its best iterate as it is: "unconverged" (cg_tol < rel < 1) keeps
+    the best iterate, value and gradient, and warns
+    (`UnconvergedSolveWarning`) or reports its residual to the caller;
+    "failed" (rel >= 1 or non-finite: no better than the zero start, as
+    gemm_bf16 gives on an indefinite store) makes the evaluation NaN,
+    the protocol a failed Cholesky follows, which the host optimizers
+    already reject.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -145,6 +154,52 @@ def precond_sqrt_fwd_apply(Q: torch.Tensor, inv_sqrt_eig: torch.Tensor, sn2,
         Qtv = Q.T @ vm
         out = (vm - Q @ Qtv) * rsn + Q @ (sqrt_eig[:, None] * Qtv)
     return out if v.dim() == 2 else out[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the verdict on a solve
+# ---------------------------------------------------------------------------
+
+class UnconvergedSolveWarning(RuntimeWarning):
+    """A CG solve stopped (at its iteration cap or a stall) with its
+    relative residual above cg_tol; its best iterate was used."""
+
+
+def solve_state(rel, tol: float) -> str:
+    """The verdict on a solve from its achieved relative residual `rel`
+    (a host read) against its effective `tol`: "converged" (rel <= tol),
+    "unconverged" (tol < rel < 1: the best iterate stands, reported) or
+    "failed" (rel >= 1 or non-finite: the best iterate is no better than
+    the zero start)."""
+    r = float(rel)
+    if r <= tol:
+        return "converged"
+    return "unconverged" if r < 1.0 else "failed"
+
+
+def solve_summary(rels, tol: float):
+    """(how many of the solves' relative residuals `rels` are not
+    converged against `tol`, the largest of them; a non-finite one
+    counts as inf)."""
+    r = [float(x) if math.isfinite(float(x)) else math.inf for x in rels]
+    return sum(1 for x in r if not x <= tol), max(r, default=0.0)
+
+
+def unconverged_message(what: str, n_bad: int, n_all: int, max_rel: float,
+                        tol: float) -> str:
+    """The one line an UnconvergedSolveWarning carries."""
+    return (f"{what}: {n_bad} of {n_all} CG solves ended unconverged, "
+            f"largest relative residual {max_rel:.3e} > cg_tol {tol:g} "
+            f"(a failed one, residual >= 1, gave NaN)")
+
+
+def _warn_unconverged(what: str, rel, tol: float) -> None:
+    warnings.warn(unconverged_message(what, 1, 1, float(rel), tol),
+                  UnconvergedSolveWarning, stacklevel=3)
+
+
+def _nan_like(*ts):
+    return tuple(torch.full_like(t, math.nan) for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +382,8 @@ def auto_precond_rank(n: int) -> int:
 
 def cg_solve(matvec: Callable, b: torch.Tensor, tol: float = 1e-5,
              maxiter: int = 500, x0=None):
-    """Plain CG on SPD A. Returns (x, n_iters, final residual norm)."""
+    """Plain CG on SPD A. Returns (x, n_iters, final residual norm); x
+    is NaN when the solve failed (residual >= ||b||, or non-finite)."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     p = r
@@ -343,7 +399,16 @@ def cg_solve(matvec: Callable, b: torch.Tensor, tol: float = 1e-5,
         p = r + (rs_new / rs) * p
         rs = rs_new
         it += 1
-    return x, it, torch.sqrt(rs)
+    return _nan_if_failed(x, rs, torch.dot(b, b)), it, torch.sqrt(rs)
+
+
+def _nan_if_failed(x, rn2, bn2):
+    """x, or NaN when the squared residual rn2 is no smaller than
+    ||b||^2 = bn2 > 0 (or non-finite): the "failed" state of
+    `solve_state`."""
+    if bool(bn2 > 0) and not bool(rn2 < bn2):     # one host read
+        return torch.full_like(x, math.nan)
+    return x
 
 
 def woodbury_pieces(L: torch.Tensor, sn2) -> torch.Tensor:
@@ -392,7 +457,8 @@ def precond_sqrt(L: torch.Tensor, sn2):
 def pcg_solve(matvec: Callable, b: torch.Tensor, pinv: Callable,
               tol: float = 1e-5, maxiter: int = 500, x0=None):
     """Preconditioned CG, returning the best iterate seen. Returns
-    (x, n_iters, best residual norm)."""
+    (x, n_iters, best residual norm); x is NaN when the solve failed
+    (no iterate beat ||b||)."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = pinv(r)
@@ -418,7 +484,7 @@ def pcg_solve(matvec: Callable, b: torch.Tensor, pinv: Callable,
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
-    return xbest, it, torch.sqrt(rn_best)
+    return _nan_if_failed(xbest, rn_best, bnorm2), it, torch.sqrt(rn_best)
 
 
 # ---------------------------------------------------------------------------
@@ -645,12 +711,12 @@ def choose_mode(n: int, mode: str = "auto", device=None) -> str:
     the flagship's sn2 = 0.016 past N ~ 10^3 and biases the SLQ logdet
     by hundreds of nats (iterative.py:675-683); its value is not to be
     trusted. Where the quantization exceeds sn2 the stored A is
-    indefinite and CG stalls: at the flagship's default noise this mode
-    returns a ZERO gradient and raises nothing (an H100 at N = 65536,
-    sn2 = 0.016: rel_residual 1.0; the JAX package does the same), so
-    fit(engine_opts={"mode": "gemm_bf16"}) stops at its start as if
-    converged. It is fit-grade only where sn2 stays above the
-    quantization (sn2 = 1 there: the sigma and sn2 gradients within
+    indefinite and CG stalls with nothing better than its zero start
+    (an H100 at N = 65536, sn2 = 0.016: rel_residual 1.0): that solve
+    has failed (`solve_state`), so the evaluation returns a NaN value
+    and gradient, which the optimizers reject (the JAX package returns
+    a zero gradient there). It is fit-grade only where sn2 stays above
+    the quantization (sn2 = 1 there: the sigma and sn2 gradients within
     5.0e-3 of "gemm"'s)."""
     if mode != "auto":
         valid = ("chol", "gemm", "gemm_bf16", "stream")
@@ -730,7 +796,9 @@ def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
     logdet as logdet P + SLQ(P^-1/2 A P^-1/2); `precond_rank=0` solves
     by plain CG through the single-vector operator (K2 in stream mode)
     and runs SLQ on the raw A, which is biased at small sn2
-    (iterative.py:584-585). Z (n, probes) injects the SLQ probes."""
+    (iterative.py:584-585). Z (n, probes) injects the SLQ probes.
+    An unconverged solve warns (UnconvergedSolveWarning); a failed one
+    returns a NaN value and alpha (`solve_state`)."""
     it_gp = _f32(it_gp)
     y = torch.as_tensor(y, dtype=torch.float32, device=it_gp.Xm.device)
     n = y.shape[0]
@@ -745,14 +813,24 @@ def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
     cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
     if L is None:
-        alpha, it, _ = cg_solve(op, y, tol=cg_tol, maxiter=cg_maxiter)
-        half_logdet = 0.5 * slq_logdet_batched(
-            op.matmat, n, key, probes, lanczos_iters, Z, y.device)
+        alpha, it, res = cg_solve(op, y, tol=cg_tol, maxiter=cg_maxiter)
+        yn = torch.linalg.norm(y)
+        rel = torch.where(yn > 0, res / yn, torch.zeros_like(res))
     else:
-        sols, it, _rel, logdet_P, wmm = whitened_solve_info(
+        sols, it, rel, logdet_P, wmm = whitened_solve_info(
             op.matmat, L, it_gp.sn2, y[:, None], tol=cg_tol,
             maxiter=cg_maxiter)
         alpha = sols[:, 0]
+    state = solve_state(rel, cg_tol)
+    if state == "failed":
+        return torch.full_like(y[0], math.nan), \
+            torch.full_like(y, math.nan), int(it)
+    if state == "unconverged":
+        _warn_unconverged("nlml_iterative", rel, cg_tol)
+    if L is None:
+        half_logdet = 0.5 * slq_logdet_batched(
+            op.matmat, n, key, probes, lanczos_iters, Z, y.device)
+    else:
         half_logdet = 0.5 * (logdet_P + slq_logdet_batched(
             wmm, n, key, probes, lanczos_iters, Z, y.device))
     val = 0.5 * torch.dot(y, alpha) + half_logdet + _const(n)
@@ -768,7 +846,9 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
       grad = 1/2 E_z [ (A^-1 z)' dA z ]  -  1/2 alpha' dA alpha
 
     "chol" mode solves the probes exactly; otherwise by batched CG
-    (whitened when precond_rank > 0). Z (n, probes) injects the probes."""
+    (whitened when precond_rank > 0). Z (n, probes) injects the probes.
+    An unconverged solve warns (UnconvergedSolveWarning); a failed one
+    gives NaN gradients (`solve_state`)."""
     it_gp = _f32(it_gp)
     y = torch.as_tensor(y, dtype=torch.float32, device=it_gp.Xm.device)
     n = y.shape[0]
@@ -788,18 +868,25 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
     cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
 
-    def _solve(B):
-        if L is None:
-            return bcg_solve(op.matmat, B, None, tol=cg_tol,
-                             maxiter=cg_maxiter)[0]
-        return whitened_solve_info(op.matmat, L, it_gp.sn2, B,
-                                   tol=cg_tol, maxiter=cg_maxiter)[0]
-
     if alpha is None:
-        sols = _solve(torch.cat([y[:, None], Zm], 1))
+        B = torch.cat([y[:, None], Zm], 1)
+    else:
+        B = Zm
+    if L is None:
+        sols, _, rel = bcg_solve_info(op.matmat, B, None, tol=cg_tol,
+                                      maxiter=cg_maxiter)
+    else:
+        sols, _, rel, _, _ = whitened_solve_info(
+            op.matmat, L, it_gp.sn2, B, tol=cg_tol, maxiter=cg_maxiter)
+    state = solve_state(rel, cg_tol)
+    if state == "failed":
+        return _nan_like(it_gp.sigma, it_gp.bias, it_gp.sn2, it_gp.Xm)
+    if state == "unconverged":
+        _warn_unconverged("grad_iterative", rel, cg_tol)
+    if alpha is None:
         alpha, ws = sols[:, 0], sols[:, 1:].T
     else:
-        ws = _solve(Zm).T
+        ws = sols.T
     return _grad_contraction(it_gp, alpha, ws, Zm.T, chunk)
 
 
@@ -902,7 +989,13 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     ignores it. Non-finite solutions (an evaluation whose
     preconditioner failed) start cold: the JAX package's segmented
     evaluator seeds its best iterate with them, which no later iterate
-    can beat, so every later evaluation of its fit returns NaN."""
+    can beat, so every later evaluation of its fit returns NaN.
+
+    A failed solve (`solve_state`: rel_residual >= 1 or non-finite)
+    returns a NaN value and NaN gradients, alpha and sols, without the
+    SLQ or the contraction; an unconverged one returns its best
+    iterate's value and gradient, its rel_residual saying so (the
+    callers report it: optim.fit, serve.IterativePredictor)."""
     it_gp = _f32(it_gp)
     y = torch.as_tensor(y, dtype=torch.float32, device=it_gp.Xm.device)
     n = y.shape[0]
@@ -919,20 +1012,28 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     rhs = torch.cat([y[:, None], Zm], 1)
     if X_prev is not None and not bool(torch.isfinite(X_prev).all()):
         X_prev = None
-    if L is None:
+    whitened = L is not None
+    if not whitened:
         sols, it, rel = bcg_solve_info(op.matmat, rhs, None, tol=cg_tol,
                                        maxiter=cg_maxiter, X0=X_prev)
-        half_logdet = 0.5 * slq_logdet_batched(
-            op.matmat, n, key_logdet, slq_probes, lanczos_iters, Z_logdet,
-            y.device)
     else:
         sols, it, rel, logdet_P, wmm = whitened_solve_info(
             op.matmat, L, it_gp.sn2, rhs, tol=cg_tol, maxiter=cg_maxiter,
             X_prev=X_prev)
         del L
+    if solve_state(rel, cg_tol) == "failed":
+        nan_sols = torch.full_like(sols, math.nan)
+        return torch.full_like(y[0], math.nan), \
+            _nan_like(it_gp.sigma, it_gp.bias, it_gp.sn2, it_gp.Xm), \
+            IterStats(int(it), rel, nan_sols[:, 0], nan_sols)
+    if whitened:
         half_logdet = 0.5 * (logdet_P + slq_logdet_batched(
             wmm, n, key_logdet, slq_probes, lanczos_iters, Z_logdet,
             y.device))
+    else:
+        half_logdet = 0.5 * slq_logdet_batched(
+            op.matmat, n, key_logdet, slq_probes, lanczos_iters, Z_logdet,
+            y.device)
     alpha, ws = sols[:, 0], sols[:, 1:].T
     val = 0.5 * torch.dot(y, alpha) + half_logdet + _const(n)
     grads = _grad_contraction(it_gp, alpha, ws, Zm.T, chunk)

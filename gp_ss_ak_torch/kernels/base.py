@@ -66,3 +66,11 @@ class Kernel:
 
     def __repr__(self):
         return f"{type(self).__name__}()"
+
+
+def check_params(kernel: Kernel, params: Params) -> None:
+    """Raise ValueError naming the parameters of `kernel` that `params`
+    lacks (gp_ss_ak_tpu/kernels/base.py:73-76)."""
+    missing = set(kernel.param_names) - set(params)
+    if missing:
+        raise ValueError(f"{kernel.name}: missing params {sorted(missing)}")

@@ -29,6 +29,7 @@ defaults (optim/segmented.py).
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import replace
 from typing import Optional, Tuple
 
@@ -36,6 +37,11 @@ import numpy as np
 import torch
 
 from gp_ss_ak_torch.inference import gaussian
+from gp_ss_ak_torch.inference.iterative import (
+    UnconvergedSolveWarning,
+    solve_summary,
+    unconverged_message,
+)
 from gp_ss_ak_torch.model import GPModel
 from gp_ss_ak_torch.optim import batched_lbfgs
 from gp_ss_ak_torch.optim.bfgs import DenseBFGS
@@ -183,9 +189,9 @@ def resolve_engine(engine: str, n_data: int, model: GPModel) -> str:
 
 class _TimedVGrad:
     """Wall-clock wrap that stays transparent: unknown attribute reads
-    (last_cg_iters, last_rel_residual, precond_rank) forward to the
-    inner closure. Each evaluation ends in a host read of its value, so
-    the device work is done when the clock stops."""
+    (last_cg_iters, last_rel_residual, cg_tol, precond_rank) forward to
+    the inner closure. Each evaluation ends in a host read of its value,
+    so the device work is done when the clock stops."""
 
     def __init__(self, inner, walls, spans, cg):
         self.inner = inner
@@ -248,9 +254,14 @@ def fit(
 
     Pass a dict as `timing` to receive {"backend_touch_s", "eval_s"
     (list), "eval_spans", "n_evals", "eval_s_sum", "eval_s_first",
-    "eval_s_steady_median", "pre_first_eval_s", "post_last_eval_s"},
-    and for the iterative engine "cg": (CG iterations, achieved relative
-    residual) per evaluation.
+    "eval_s_steady_median", "pre_first_eval_s", "post_last_eval_s",
+    "unconverged_evals", "max_rel_residual"}, and for the iterative
+    engine "cg": (CG iterations, achieved relative residual) per
+    evaluation. An iterative fit with evaluations whose CG ended above
+    its cg_tol warns once, an UnconvergedSolveWarning naming their
+    count, the largest relative residual and the cg_tol (a failed solve
+    made its evaluation NaN, which the optimizer rejected); the stop
+    reason is the optimizer's, as in the JAX package.
     `pre_first_eval_s` counts from the end of the backend touch, so the
     two do not overlap. `opt_opts` go to the optimizer's constructor."""
     t_enter = time.perf_counter()
@@ -280,16 +291,12 @@ def fit(
     eng = resolve_engine(engine, n_data, model)
     if (engine.lower() == "auto" and n_data > DENSE_MAX_N
             and eng == "dense" and verbose >= 0):
-        import warnings
-
         warnings.warn(
             f"engine='auto' picked the dense path at N={n_data} "
             "(no CUDA device or unsupported model); expect large "
             "memory cost — pass engine='iterative' to force the "
             "matrix-free route", stacklevel=2)
     if segmented and eng != "iterative":
-        import warnings
-
         warnings.warn(
             f"segmented=True is only honoured by the iterative engine; "
             f"the resolved engine is '{eng}' and the fit will run "
@@ -318,11 +325,11 @@ def fit(
     else:
         vgrad = make_value_and_grad(model, X, y, jitter)
 
+    walls: list = []
+    spans: list = []
+    cg: list = []
+    vgrad = _TimedVGrad(vgrad, walls, spans, cg)
     if timing is not None:
-        walls: list = []
-        spans: list = []
-        cg: list = []
-        vgrad = _TimedVGrad(vgrad, walls, spans, cg)
         timing["eval_s"] = walls
         timing["eval_spans"] = spans
         if eng == "iterative":
@@ -330,6 +337,15 @@ def fit(
 
     opt = host_optimizer(name, iters, verbose, **(opt_opts or {}))
     res = opt.minimize(vgrad, x0, lb, ub, callback=callback)
+    tol = getattr(vgrad, "cg_tol", None)
+    n_bad, max_rel = solve_summary([r for _, r in cg], tol or 0.0)
+    if n_bad:
+        warnings.warn(unconverged_message(
+            "fit", n_bad, len(cg), max_rel, tol), UnconvergedSolveWarning,
+            stacklevel=2)
+    if timing is not None:
+        timing["unconverged_evals"] = n_bad
+        timing["max_rel_residual"] = max_rel
     if timing is not None and timing["eval_spans"]:
         spans_ = timing["eval_spans"]
         timing["pre_first_eval_s"] = spans_[0][0] - t_ready
@@ -383,6 +399,7 @@ def _fit_device_loop(model: GPModel, X, y, lb, ub, iters: int,
         timing["total_wall_s"] = time.perf_counter() - t0
         timing["note"] = ("device-loop optimizer: per-evaluation timing "
                           "not recorded; total_wall_s is the whole fit")
+        timing["unconverged_evals"], timing["max_rel_residual"] = 0, 0.0
     res = OptResult(x, fun, int(out.n_iters[0]), -1, converged, [fun],
                     "device_loop_converged" if converged else "maxiter")
     return _fitted(model, res, X), res

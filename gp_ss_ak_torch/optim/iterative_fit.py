@@ -32,7 +32,9 @@ from torch.autograd.profiler import record_function
 
 from gp_ss_ak_torch.inference.iterative import (
     IterativeGP,
+    _effective_cg_tol,
     auto_precond_rank,
+    choose_mode,
     nlml_and_grad_iterative,
     rademacher,
 )
@@ -100,10 +102,13 @@ def make_iterative_value_and_grad(
     selects the operator (inference.iterative.choose_mode). Z_logdet
     (n, slq_probes) and Z_trace (n, probes) inject the probes; otherwise
     they are drawn from `seed`. The closure carries `.last_cg_iters`,
-    `.last_rel_residual`, `.precond_rank` and `.prev_sols`, the last
-    evaluation's solutions [alpha | A^-1 Z_trace] (n, 1 + probes; None
-    after a chol-mode one); each call is a profiler range,
-    "iterative_fit.value_and_grad".
+    `.last_rel_residual`, `.cg_tol` (the tolerance its solves are held
+    to, after gemm_bf16's floor), `.precond_rank` and `.prev_sols`, the
+    last evaluation's solutions [alpha | A^-1 Z_trace] (n, 1 + probes;
+    None after a chol-mode one); each call is a profiler range,
+    "iterative_fit.value_and_grad". An evaluation whose solve failed is
+    NaN (inference.iterative.nlml_and_grad_iterative); `optim.fit`
+    reports the unconverged ones.
 
     `warm_start` starts each CG solve from `.prev_sols`, at the cost of
     one more operator pass for its true residual. Consecutive
@@ -173,6 +178,8 @@ def make_iterative_value_and_grad(
     value_and_grad.last_cg_iters = None
     value_and_grad.last_rel_residual = None
     value_and_grad.prev_sols = None
+    value_and_grad.cg_tol = _effective_cg_tol(
+        cg_tol, choose_mode(n, mode, device))
     value_and_grad.precond_rank = (
         auto_precond_rank(n) if precond_rank is None else precond_rank)
     return value_and_grad

@@ -11,11 +11,17 @@ a caller that writes files does so on rank 0 only (cli.py).
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from gp_ss_ak_torch.inference.iterative import (
+    UnconvergedSolveWarning,
+    solve_summary,
+    unconverged_message,
+)
 from gp_ss_ak_torch.model import GPModel
 from gp_ss_ak_torch.optim.api import _fitted, host_optimizer
 from gp_ss_ak_torch.optim.lbfgsb import (
@@ -117,14 +123,30 @@ def fit_ring(
     than an (n_local, TILE_CHUNK) tile. The probes are fixed per fit
     (drawn from `seed`), so the optimizer sees a deterministic
     objective. Flagship Sum([ExpAns, Bias]) + Gaussian likelihood
-    only."""
+    only. As `optim.fit` does, a fit with evaluations whose CG ended
+    above `cg_tol` warns once (UnconvergedSolveWarning, on every rank:
+    the residuals are psum-reduced); a failed solve's evaluation is NaN,
+    which the optimizer rejects."""
     from gp_ss_ak_torch.parallel.ring import make_ring_nlml_and_grad
 
     X_local, y_local, n, _ = _data(model, X, y, mesh, nb)
-    nlml_grad = make_ring_nlml_and_grad(
+    ring = make_ring_nlml_and_grad(
         model.kernel, mesh, n=n, precond_rank=precond_rank, probes=probes,
         slq_probes=slq_probes, lanczos_iters=lanczos_iters, cg_tol=cg_tol,
-        cg_maxiter=cg_maxiter, probe_seed=seed)
-    return _minimize(model, X, nlml_grad, X_local, y_local,
-                     LBFGSB(maxiter=iters, verbose=verbose), lower, upper,
-                     callback)
+        cg_maxiter=cg_maxiter, probe_seed=seed, with_stats=True)
+    rels = []
+
+    def nlml_grad(flat, X_local, y_local):
+        value, grad, stats = ring(flat, X_local, y_local)
+        rels.append(float(stats[1]))
+        return value, grad
+
+    out = _minimize(model, X, nlml_grad, X_local, y_local,
+                    LBFGSB(maxiter=iters, verbose=verbose), lower, upper,
+                    callback)
+    n_bad, max_rel = solve_summary(rels, cg_tol)
+    if n_bad:
+        warnings.warn(unconverged_message("fit_ring", n_bad, len(rels),
+                                          max_rel, cg_tol),
+                      UnconvergedSolveWarning, stacklevel=2)
+    return out

@@ -137,28 +137,38 @@ class TwoLevelMesh:
 
 
 def two_level_mesh(rows_per_host: Optional[int] = None, device="cuda",
-                   backend: Optional[str] = None) -> TwoLevelMesh:
-    """(chains, rows) mesh over every rank of the job: consecutive
-    groups of `rows_per_host` ranks (default torchrun's LOCAL_WORLD_SIZE,
-    else the whole world) split each chain's rows; rank c * rows + i is
-    row block i of chain c. Every rank creates every subgroup, as
-    torch.distributed requires."""
+                   backend: Optional[str] = None,
+                   n_ranks: Optional[int] = None
+                   ) -> Optional[TwoLevelMesh]:
+    """(chains, rows) mesh over the first `n_ranks` ranks of the job
+    (default every rank): consecutive groups of `rows_per_host` ranks
+    (default torchrun's LOCAL_WORLD_SIZE, else all `n_ranks`) split each
+    chain's rows; rank c * rows + i is row block i of chain c. Every
+    rank of the world creates every subgroup, as torch.distributed
+    requires; a rank past the first `n_ranks` gets None (the JAX dry run
+    builds its two-level mesh on a prefix of the devices the same way,
+    __graft_entry__.py:138-147)."""
     world = make_mesh(device, backend)
-    r = rows_per_host or int(os.environ.get("LOCAL_WORLD_SIZE",
-                                            world.size))
-    if world.size % r:
-        raise ValueError(f"two_level_mesh: {world.size} ranks do not split "
+    n = world.size if n_ranks is None else n_ranks
+    if not 0 < n <= world.size:
+        raise ValueError(f"two_level_mesh: {n} ranks of a world of "
+                         f"{world.size}")
+    r = rows_per_host or int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    if n % r:
+        raise ValueError(f"two_level_mesh: {n} ranks do not split "
                          f"into rows of {r}")
-    n_chains = world.size // r
-    ranks = [world.global_rank(i) for i in range(world.size)]
+    n_chains = n // r
+    ranks = [world.global_rank(i) for i in range(n)]
     rows = chains = None
     for c in range(n_chains):
         g = dist.new_group(ranks[c * r:(c + 1) * r], backend=world.backend)
-        if world.rank // r == c:
+        if world.rank // r == c and world.rank < n:
             rows = g
     for i in range(r):
         g = dist.new_group(ranks[i::r], backend=world.backend)
-        if world.rank % r == i:
+        if world.rank % r == i and world.rank < n:
             chains = g
+    if world.rank >= n:
+        return None
     return TwoLevelMesh(sub_mesh(world, rows), sub_mesh(world, chains),
                         world.rank // r)

@@ -42,6 +42,12 @@ What differs from the JAX package, and why:
     iteration reads one flag to the host.
   * The Woodbury P^-1 that JAX's `_ring_precond` also returns is not
     ported: every caller whitens with P^(-1/2) and passes no P^-1.
+  * Every solve is judged (inference.iterative.solve_state): a failed
+    one (relative residual >= 1 or non-finite) makes the evaluation's
+    value and gradient, or the predict's means and variances, NaN;
+    an unconverged one keeps its best iterate, and the predict warns
+    (UnconvergedSolveWarning). The residuals are psum-reduced, so every
+    rank reaches the same verdict.
 
 An evaluation's stages carry profiler ranges ("ring.pivoted_cholesky",
 "ring.cg", "ring.slq", "ring.surrogate").
@@ -57,10 +63,13 @@ from torch.autograd.profiler import record_function
 
 from gp_ss_ak_torch.inference.iterative import (
     BCG_STALL_ITERS,
+    _nan_if_failed,
     _quadrature,
+    _warn_unconverged,
     auto_precond_rank,
     pivoted_cholesky,
     rademacher,
+    solve_state,
 )
 from gp_ss_ak_torch.kernels.distance import highest_precision, pad_to_3d
 from gp_ss_ak_torch.ops.fused import _is_flagship, fused_expans_bias_cross
@@ -384,7 +393,8 @@ def make_ring_cg_solve(kernel, mesh: Mesh, n: int, tol: float = 1e-6,
                        maxiter: int = 1000) -> Callable:
     """Returns f(flat, X_local, b_local) -> (x_local, iterations,
     residual): CG on A x = b where every matvec is one ring pass and
-    every inner product a psum. One flag read per iteration."""
+    every inner product a psum. One flag read per iteration. x is NaN
+    when the solve failed (residual >= ||b||, or non-finite)."""
     _flagship_only(kernel, "ring CG")
 
     def f(flat, X_local, b_local):
@@ -412,7 +422,7 @@ def make_ring_cg_solve(kernel, mesh: Mesh, n: int, tol: float = 1e-6,
                 p = r + (rs_new / rs) * p
                 rs = rs_new
                 it += 1
-            return x, it, torch.sqrt(rs)
+            return _nan_if_failed(x, rs, pdot(b, b)), it, torch.sqrt(rs)
 
     return f
 
@@ -442,7 +452,8 @@ def make_ring_nlml_and_grad(kernel, mesh: Mesh, n: int,
     `draw_probes(probe_seed, ...)`) are fixed, so an optimizer sees a
     deterministic objective. Returns f(flat, X_local, y_local) ->
     (value, grad), or (value, grad, stats) with stats = [CG iterations,
-    achieved relative residual] when `with_stats`."""
+    achieved relative residual] when `with_stats`. A failed solve gives
+    a NaN value and gradient (`solve_state` against `cg_tol`)."""
     _flagship_only(kernel, "ring NLML")
     if precond_rank is None:
         precond_rank = auto_precond_rank(n)
@@ -472,7 +483,9 @@ def _make_ring_body(kernel, mesh: Mesh, n: int, precond_rank: int,
                     uniform: Optional[Mesh] = None):
     """Per-rank ring NLML+grad body, shared by the 1-D mesh and the rows
     of the two-level mesh. Returns (value, grad, CG iterations, achieved
-    relative residual)."""
+    relative residual); a failed solve returns a NaN value and gradient
+    without the SLQ or the surrogate (on every rank of `mesh`, whose
+    residual is one psum)."""
     nk = kernel.n_params
 
     def body(flat, X_local, y_local):
@@ -500,6 +513,9 @@ def _make_ring_body(kernel, mesh: Mesh, n: int, precond_rank: int,
                     mesh, lambda V: inv_sqrt(matmat(inv_sqrt(V))),
                     inv_sqrt(rhs), cg_tol, cg_maxiter, uniform)
                 sols = inv_sqrt(sols_w)
+            if solve_state(cg_rel, cg_tol) == "failed":
+                nan = torch.full((), math.nan, dtype=dt, device=dev)
+                return nan, torch.full_like(flat, math.nan), cg_it, cg_rel
             alpha, ws = sols[:, 0], sols[:, 1:]
             Zl_loc = _probe_rows(Zl, n, slq_probes, 0, loc.g0, loc.n_local,
                                  dt, dev)
@@ -592,6 +608,8 @@ def make_ring_predict(kernel, mesh: Mesh, n: int, tol: float = 1e-6,
     batched CG ([y | kX]); then mu = kX' alpha and var = kdiag -
     sum(kX o U) + sn2, each one psum. Mirrors posteriorMeanVar
     (GP_Utils.cpp:943-1043). Serve in chunks: a chunk costs one ring CG.
+    An unconverged solve warns (UnconvergedSolveWarning); a failed one
+    gives NaN means and variances.
 
     Returns f(flat, X_local, y_local, Xstar) -> (mu, var)."""
     _flagship_only(kernel, "ring predict")
@@ -616,17 +634,22 @@ def make_ring_predict(kernel, mesh: Mesh, n: int, tol: float = 1e-6,
                                            precond_rank,
                                            loc.n_local * mesh.size)
                 inv_sqrt, _ = _ring_precond(mesh, L, sn2, n)
-                sols_w, _, _ = _ring_bcg(
+                sols_w, _, rel = _ring_bcg(
                     mesh, lambda V: inv_sqrt(matmat(inv_sqrt(V))),
                     inv_sqrt(rhs), tol, maxiter)
                 sols = inv_sqrt(sols_w)
             else:
-                sols, _, _ = _ring_bcg(mesh, matmat, rhs, tol, maxiter)
+                sols, _, rel = _ring_bcg(mesh, matmat, rhs, tol, maxiter)
+            state = solve_state(rel, tol)
+            if state == "unconverged":
+                _warn_unconverged("ring predict", rel, tol)
             alpha, U = sols[:, 0], sols[:, 1:]
             with highest_precision():
                 mu = comm.psum(mesh, kX.mT @ alpha)
             quad = comm.psum(mesh, torch.sum(kX * U, dim=0))
             var = torch.clamp_min(sigma * sigma + bias - quad, 0.0) + sn2
+            if state == "failed":
+                mu, var = (torch.full_like(t, math.nan) for t in (mu, var))
         return mu, var
 
     return f

@@ -21,6 +21,8 @@ Both servers take the plain and the warped Gaussian likelihood.
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,9 +30,12 @@ import torch
 
 from gp_ss_ak_torch.inference import gaussian
 from gp_ss_ak_torch.inference.iterative import (
+    UnconvergedSolveWarning,
     auto_precond_rank,
-    bcg_solve,
+    bcg_solve_info,
     pivoted_cholesky,
+    solve_state,
+    unconverged_message,
     whitened_solve_info,
 )
 from gp_ss_ak_torch.inference.likelihoods import WarpedGaussian
@@ -138,6 +143,14 @@ class IterativePredictor:
     (gaussian.warped_predictive_mix). Its predictive mean mixes over
     the latent sigma, so a warped `mean_only` call still solves for the
     variance.
+
+    Every solve is judged (inference.iterative.solve_state) against
+    `cg_tol`: `setup_rel_residual` and `last_rel_residual` keep the
+    setup's and the last request's (its worst block). An unconverged
+    solve warns once per server (UnconvergedSolveWarning); a failed
+    setup solve makes every mean and variance NaN, and a failed request
+    solve that request's variances, as the dense Predictor's failed
+    factor does (the JAX server uses the best iterate as it is).
     """
 
     #: max right-hand-side columns per variance solve. TPU-era values,
@@ -205,19 +218,35 @@ class IterativePredictor:
             L = pivoted_cholesky(self._Xm, sigma, bias, rank)
 
             def solve(B):
-                sols, it, _rel, _ld, _wmm = whitened_solve_info(
+                sols, it, rel, _ld, _wmm = whitened_solve_info(
                     matmat, L, sn2, B, tol=cg_tol, maxiter=cg_maxiter)
-                return sols, it
+                return sols, it, rel
         else:
             def solve(B):
-                return bcg_solve(matmat, B, None, tol=cg_tol,
-                                 maxiter=cg_maxiter)
+                return bcg_solve_info(matmat, B, None, tol=cg_tol,
+                                      maxiter=cg_maxiter)
         self._solve = solve
-        alpha, it = solve(yd[:, None])
-        self.alpha = alpha[:, 0]
+        self._warned = False
+        alpha, it, rel = solve(yd[:, None])
         self.setup_cg_iters = int(it)
+        self.setup_rel_residual = float(rel)
+        self._setup_failed = not self._judge("setup", rel)
+        self.alpha = torch.full_like(alpha[:, 0], math.nan) \
+            if self._setup_failed else alpha[:, 0]
         self._chunk = chunk
         self.last_cg_iters = None
+        self.last_rel_residual = None
+
+    def _judge(self, what: str, rel) -> bool:
+        """False when the solve failed; warns for the server's first
+        unconverged solve."""
+        state = solve_state(rel, self.cg_tol)
+        if state == "unconverged" and not self._warned:
+            self._warned = True
+            warnings.warn(unconverged_message(
+                f"IterativePredictor ({what})", 1, 1, float(rel),
+                self.cg_tol), UnconvergedSolveWarning, stacklevel=3)
+        return state != "failed"
 
     def _map_queries(self, Xs: np.ndarray) -> torch.Tensor:
         Xsp = pad_to_3d(torch.as_tensor(Xs, dtype=torch.float32,
@@ -250,22 +279,28 @@ class IterativePredictor:
         B = kx.shape[1]
         blk = self._solve_col_block()
         if B <= blk:
-            W, it = self._solve(kx)
-            self.last_cg_iters = int(it)
+            W, it, rel = self._solve(kx)
+            iters, rel = int(it), float(rel)
         else:
             pad = (-B) % blk
             kx_p = torch.nn.functional.pad(kx, (0, pad)) if pad else kx
-            parts, iters = [], 0
+            parts, iters, rels = [], 0, []
             for s in range(0, B + pad, blk):
-                Wb, it = self._solve(kx_p[:, s:s + blk])
+                Wb, it, rel = self._solve(kx_p[:, s:s + blk])
                 parts.append(Wb)
                 iters = max(iters, int(it))
+                rels.append(float(rel))
             W = torch.cat(parts, dim=1)[:, :B]
-            self.last_cg_iters = iters
+            # the worst block; a non-finite one wins
+            rel = max(rels, key=lambda r: r if r == r else math.inf)
+        self.last_cg_iters, self.last_rel_residual = iters, rel
         kss = self.s2 + self.bias                    # k(x*, x*)
         var = kss - torch.sum(kx * W, dim=0)
         # clamp BEFORE the noise add: reference order
-        return torch.clamp_min(var, 0.0) + self.sn2
+        var = torch.clamp_min(var, 0.0) + self.sn2
+        if not self._judge("request", rel) or self._setup_failed:
+            var = torch.full_like(var, math.nan)
+        return var
 
     def __call__(self, Xstar, batch_size: int = 4096,
                  mean_only: bool = False, latent: bool = False

@@ -1,10 +1,12 @@
 """Port parity: gp_ss_ak_torch.entry.dryrun_multichip, the mesh dry run,
 against the JAX package's (__graft_entry__.dryrun_multichip).
 
-The port's dry run runs in place on 2 torch ranks over gloo on the CPU
-(tests/torch_mesh_worker.py), and again from this process, where it
-starts its own 2 ranks. The JAX dry run runs here on 2 of the CPU
-devices tests/conftest.py forces, and prints its numbers to 4 decimals.
+The port's dry run runs in place on 2 and on 3 torch ranks over gloo on
+the CPU (tests/torch_mesh_worker.py), and again from this process, where
+it starts its own 2 ranks. The JAX dry run runs here on 2 and 3 of the
+CPU devices tests/conftest.py forces, and prints its numbers to 4
+decimals. At 3 ranks the two-level batch runs on ranks 0-1 and rank 2
+skips it, as JAX puts it on its first 2 devices.
 
 Tolerances: the dist NLML, float32 in both packages on 16 points, within
 1e-4 relative of the JAX line's (measured 1.7e-5 at 2 ranks); the ring's
@@ -32,28 +34,46 @@ LINE = (r"dryrun_multichip\((\d+)\): nlml=(\S+) fit3=(\S+) ring=(\S+) "
 
 
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    """(the JAX dry run's printed line, the 2 ranks' results)."""
+def dry_runs(tmp_path_factory):
+    """{n: (the JAX dry run's printed line at n devices, the n ranks'
+    results)} for n = 2 and 3."""
     import __graft_entry__ as graft
 
-    handle = start({2: {"suite": "dryrun"}},
+    worlds = (2, 3)
+    handle = start({n: {"suite": "dryrun"} for n in worlds},
                    str(tmp_path_factory.mktemp("dryrun")))
+    texts = {}
     try:
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            graft.dryrun_multichip(2)
+        for n in worlds:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                graft.dryrun_multichip(n)
+            texts[n] = out.getvalue()
     finally:
-        ranks = collect(handle)[2]
-    return out.getvalue(), ranks
+        ranks = collect(handle)
+    return {n: (texts[n], ranks[n]) for n in worlds}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(dry_runs):
+    """(the JAX dry run's printed line, the 2 ranks' results)."""
+    return dry_runs[2]
 
 
 def test_dryrun_in_place_matches_jax(two_ranks):
-    jax_text, ranks = two_ranks
+    _matches_jax(*two_ranks, 2)
+
+
+def test_dryrun_on_three_ranks_matches_jax(dry_runs):
+    _matches_jax(*dry_runs[3], 3)
+
+
+def _matches_jax(jax_text, ranks, world):
     n, nlml, fit3, ring = re.search(LINE, jax_text).groups()
-    assert n == "2"
+    assert n == str(world)
     for r in ranks:
         line = str(r["line"])
-        assert re.fullmatch(LINE, line).group(1) == "2"
+        assert re.fullmatch(LINE, line).group(1) == str(world)
         assert float(r["nlml"]) == pytest.approx(float(nlml), rel=1e-4)
         assert float(r["fit3"]) <= float(r["nlml"]) + 1e-6
         assert np.isfinite(float(r["ring"])) and float(r["ring_rel"]) < 1e-4
@@ -61,6 +81,15 @@ def test_dryrun_in_place_matches_jax(two_ranks):
         # every rank returns the same numbers
         for key in ("nlml", "fit3", "ring"):
             assert float(r[key]) == float(ranks[0][key])
+
+
+def test_dryrun_runs_two_level_on_a_prefix_of_an_odd_world(dry_runs):
+    """At 3 ranks the two-level batch (2 chains x 1 row) runs on ranks
+    0-1, and rank 2, which helped build its groups, skips it; at 2 ranks
+    every rank runs it."""
+    assert [bool(r["two_level"]) for r in dry_runs[3][1]] == [True, True,
+                                                              False]
+    assert all(bool(r["two_level"]) for r in dry_runs[2][1])
 
 
 def test_dryrun_starts_its_own_ranks(two_ranks, capsys):

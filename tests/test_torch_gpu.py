@@ -36,7 +36,10 @@ card against its plain version on the CPU) is held as two float32
 implementations of one estimator (tests/test_torch_segmented.py): CG
 iterations within 1, value rel 1e-4, gradient rtol 1e-3 with atol 1e-3
 of its largest entry; on the card, its warm start against a cold start
-as tests/test_torch_segmented.py holds them on the CPU.
+as tests/test_torch_segmented.py holds them on the CPU. A failed solve
+(gemm_bf16 here) gives a NaN value and gradient on the card as on the
+CPU. The four example workflows run at their default sizes, each held
+to its own checks.
 """
 
 import os
@@ -769,3 +772,56 @@ def test_segmented_on_cuda_matches_cpu(cuda):
     assert vw == pytest.approx(vc, rel=1e-4)
     np.testing.assert_allclose(gw, gc, rtol=2e-3,
                                atol=1e-4 * np.abs(gc).max())
+
+
+def test_failed_gemm_bf16_solve_is_nan_on_cuda(cuda):
+    """The NaN protocol of a failed solve (inference.iterative.
+    solve_state) on the card: CG stopped before its first iteration
+    leaves relative residual 1, so the evaluation is NaN; the same
+    operator with its solve run converges."""
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    n = 4096
+    X = _points(n, 3, cuda, seed=11).float()
+    y = torch.sin(X @ torch.tensor([3.0, 1.0, 2.0], device=cuda))
+    gp = ti.IterativeGP(X, torch.tensor(SIGMA, device=cuda),
+                        torch.tensor(BIAS, device=cuda),
+                        torch.tensor(1.0, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    Zl, Zt = ti.rademacher(g, (n, 16)), ti.rademacher(g, (n, 4))
+    kw = dict(mode="gemm_bf16", probes=4, slq_probes=16, lanczos_iters=8,
+              precond_rank=64, Z_logdet=Zl, Z_trace=Zt)
+    before = pairwise.launches
+    val, grads, st = ti.nlml_and_grad_iterative(gp, y, None, None,
+                                                cg_maxiter=0, **kw)
+    assert pairwise.launches > before
+    assert float(st.rel_residual) == 1.0
+    assert np.isnan(float(val)) and all(torch.isnan(t).all() for t in grads)
+    val, grads, st = ti.nlml_and_grad_iterative(gp, y, None, None, **kw)
+    assert ti.solve_state(st.rel_residual, ti.BF16_CG_TOL_FLOOR) \
+        == "converged"
+    assert np.isfinite(float(val)) and all(torch.isfinite(t).all()
+                                           for t in grads)
+
+
+@pytest.mark.parametrize("name", ["full_workflow", "bayes_workflow",
+                                  "distributed_workflow", "ring_workflow"])
+def test_example_workflow_on_cuda_at_its_default_size(cuda, name):
+    """Each example's main() on the card at its default size, float32:
+    its own checks hold (the distributed workflow's dist-against-ring
+    means, the ring workflow's held-out MSE), the full workflow's test
+    MSE stays below 0.2 var(y) and the Bayes workflow's NUTS accepts in
+    (0.3, 1) with every draw finite."""
+    import importlib
+
+    out = importlib.import_module(f"gp_ss_ak_torch.examples.{name}").main()
+    if name == "full_workflow":
+        assert out["mse"] < 0.2 * out["var_y"]
+        assert torch.isfinite(out["theta"]).all()
+    elif name == "bayes_workflow":
+        assert torch.isfinite(out["theta"]).all()
+        assert 0.3 < float(out["accept"].mean()) < 1.0
+    elif name == "ring_workflow":
+        assert out["mse"] < 0.1 and np.isfinite(out["cg_rel"])
+    else:
+        assert np.allclose(out["mu"], out["mu_ring"], atol=1e-3)

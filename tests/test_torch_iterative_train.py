@@ -24,6 +24,14 @@ Two kinds of comparison, with their tolerances:
     bias, sn2 gradients rel 1e-3, abs 1e-2; the Xm gradient within 1e-3
     of its largest entry; iteration counts within 1. The exact chol
     mode has no CG: its values agree to rel 1e-5.
+
+A solve cut short (`inference.iterative.solve_state`): stopped above
+cg_tol but below a relative residual of 1 it is "unconverged", and the
+evaluation keeps JAX's value and gradient at the float32 tolerances
+above, reported by the fit (one UnconvergedSolveWarning, the counts in
+`timing`, JAX's stop reason); at a residual of 1 or more it is "failed",
+and the port's evaluation is NaN where JAX's is finite, the witness of
+that deliberate difference.
 """
 
 import jax
@@ -37,11 +45,13 @@ import gp_ss_ak_torch.model as tm
 from gp_ss_ak_tpu.inference import iterative as ji
 from gp_ss_ak_tpu.ops import matvec as jmv
 from gp_ss_ak_tpu.ops.fused import mapped_points
+from gp_ss_ak_tpu.optim import fit as j_fit
 from gp_ss_ak_tpu.optim.iterative_fit import (
     make_iterative_value_and_grad as j_make_vg,
 )
 from gp_ss_ak_torch.inference import iterative as ti
 from gp_ss_ak_torch.ops import matvec as tmv
+from gp_ss_ak_torch.optim import fit as t_fit
 from gp_ss_ak_torch.optim.iterative_fit import (
     make_iterative_value_and_grad as t_make_vg,
 )
@@ -464,3 +474,117 @@ def test_drawn_probes_are_fixed_per_fit():
     with pytest.raises(ValueError, match="iterative engine"):
         t_make_vg(tm.default_model(3, kernel_names=["RBF"], device=CPU),
                   X, y)
+
+
+def test_unconverged_stream_evaluation_keeps_jax_values():
+    """CG cut at 3 iterations, far above cg_tol: the best iterate's value
+    and gradient, JAX's, with the residual saying so."""
+    gj, gt, yj, yt, *_ = flagship(n=256, seed=9)
+    k1, k2 = jax.random.PRNGKey(1), jax.random.PRNGKey(2)
+    kw = dict(cg_tol=1e-5, cg_maxiter=3, probes=4, lanczos_iters=16,
+              precond_rank=32, mode="stream", chunk=64, slq_probes=8)
+    vj, g_j, sj = ji.nlml_and_grad_iterative(gj, yj, k1, k2, **TILE, **kw)
+    vt, g_t, st = ti.nlml_and_grad_iterative(
+        gt, yt, None, None, Z_logdet=rademacher(k1, (256, 8)),
+        Z_trace=rademacher(k2, (256, 4)), **kw)
+    assert st.cg_iters == int(sj.cg_iters) == 3
+    assert ti.solve_state(st.rel_residual, 1e-5) == "unconverged"
+    assert float(st.rel_residual) == pytest.approx(float(sj.rel_residual),
+                                                   rel=1e-3)
+    assert float(vt) == pytest.approx(float(vj), rel=1e-4, abs=0.05)
+    grads_close(g_t, g_j)
+    close(st.alpha.numpy(), sj.alpha, rtol=1e-4)
+
+
+def test_fit_reports_unconverged_solves_and_keeps_jax_stop():
+    _, _, _, _, X, y = flagship(n=160, seed=5)
+    mj = jm.default_model(3, dtype=jnp.float32)
+    mt = tm.default_model(3, dtype=torch.float32, device=CPU)
+    kw = dict(seed=3, probes=4, lanczos_iters=8, cg_tol=1e-5, cg_maxiter=3,
+              chunk=64, precond_rank=16, slq_probes=8, mode="stream")
+    _, rj = j_fit(mj, X, y, iters=2, engine="iterative",
+                  engine_opts=dict(**kw, **TILE))
+    k_ld, k_tr = jax.random.split(jax.random.PRNGKey(3))
+    timing = {}
+    with pytest.warns(ti.UnconvergedSolveWarning) as seen:
+        _, rt = t_fit(mt, X, y, iters=2, engine="iterative", timing=timing,
+                      engine_opts=dict(**kw, Z_logdet=rademacher(
+                          k_ld, (160, 8)), Z_trace=rademacher(k_tr, (160, 4))))
+    assert len(seen) == 1
+    rels = [r for _, r in timing["cg"]]
+    bad = sum(r > 1e-5 for r in rels)
+    assert len(rels) == rt.n_evals
+    assert 0 < bad == timing["unconverged_evals"] <= rt.n_evals
+    assert timing["max_rel_residual"] == max(rels) < 1
+    assert str(seen[0].message).startswith(
+        f"fit: {bad} of {rt.n_evals} CG solves ended unconverged")
+    assert rt.stop_reason == rj.stop_reason
+    assert rt.n_iters == rj.n_iters
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-3)
+
+
+def test_failed_gemm_bf16_solve_is_nan_where_jax_is_finite():
+    """Points packed into a small ball make K nearly singular, so the
+    bfloat16 store's rounding (exact diagonal, rounded off-diagonal)
+    leaves A_bf16 indefinite at sn2 = 1e-4: a whitened probe column
+    meets p'Ap <= 0 at its first step, never moves from its zero start,
+    and the solve ends at relative residual 1. The port's evaluation is
+    NaN; JAX's uses that zero column and returns finite numbers."""
+    n = 64
+    rng = np.random.default_rng(0)
+    X = 0.02 * rng.uniform(-1, 1, (n, 3))
+    y = np.sin(X @ np.array([50.0, 100.0, 150.0]))
+    m = jm.default_model(3, dtype=jnp.float32)
+    ep, bp = m.kernel_params
+    Xm = np.asarray(mapped_points(m.kernel.children[0], ep,
+                                  jnp.asarray(X, jnp.float32)))
+    s, b, sn2 = float(ep["Sigma"]), float(bp["Sigma"]), 1e-4
+    gj = ji.IterativeGP(jnp.asarray(Xm), jnp.float32(s), jnp.float32(b),
+                        jnp.float32(sn2))
+    gt = ti.IterativeGP(torch.tensor(Xm), torch.tensor(s), torch.tensor(b),
+                        torch.tensor(sn2))
+    A16 = tmv.MaterializedOperator(gt.Xm, gt.sigma, gt.bias, gt.sn2,
+                                   store_dtype=torch.bfloat16).A.double()
+    assert float(torch.linalg.eigvalsh(A16)[0]) < 0
+    k1, k2 = jax.random.PRNGKey(1), jax.random.PRNGKey(2)
+    kw = dict(cg_tol=1e-5, probes=4, lanczos_iters=8, precond_rank=16,
+              mode="gemm_bf16", chunk=64, slq_probes=8)
+    vj, g_j, sj = ji.nlml_and_grad_iterative(gj, jnp.asarray(y, jnp.float32),
+                                             k1, k2, **TILE, **kw)
+    vt, g_t, st = ti.nlml_and_grad_iterative(
+        gt, torch.tensor(y, dtype=torch.float32), None, None,
+        Z_logdet=rademacher(k1, (n, 8)), Z_trace=rademacher(k2, (n, 4)),
+        **kw)
+    assert float(st.rel_residual) == float(sj.rel_residual) == 1.0
+    assert ti.solve_state(st.rel_residual, ti.BF16_CG_TOL_FLOOR) == "failed"
+    assert np.isnan(float(vt)) and all(torch.isnan(g).all() for g in g_t)
+    assert torch.isnan(st.sols).all()
+    assert np.isfinite(float(vj))
+    assert all(np.isfinite(np.asarray(g)).all() for g in g_j)
+
+
+@pytest.mark.parametrize("rank,cut", [(0, 20), (32, 3)])
+def test_nlml_and_grad_iterative_cut_short_warn_or_nan(rank, cut):
+    """The functions that return no residual warn for an unconverged
+    solve (nlml_iterative's value then JAX's) and are NaN for a failed
+    one (no iteration at all: residual 1). Plain CG's residual is not
+    monotone (its third iterate sits above ||y|| here, which fails), so
+    rank 0 is cut later."""
+    gj, gt, yj, yt, *_ = flagship()
+    key = jax.random.PRNGKey(3)
+    kw = dict(cg_tol=1e-5, probes=8, lanczos_iters=16, precond_rank=rank,
+              mode="stream")
+    Z = rademacher(key, (192, 8))
+    vj, _, _ = ji.nlml_iterative(gj, yj, key, cg_maxiter=cut, **TILE, **kw)
+    with pytest.warns(ti.UnconvergedSolveWarning, match="nlml_iterative"):
+        vt, _, itt = ti.nlml_iterative(gt, yt, None, Z=Z, cg_maxiter=cut, **kw)
+    assert itt == cut
+    assert float(vt) == pytest.approx(float(vj), rel=1e-4, abs=0.05)
+    vt, at, _ = ti.nlml_iterative(gt, yt, None, Z=Z, cg_maxiter=0, **kw)
+    assert np.isnan(float(vt)) and torch.isnan(at).all()
+    kw.pop("lanczos_iters")
+    with pytest.warns(ti.UnconvergedSolveWarning, match="grad_iterative"):
+        g = ti.grad_iterative(gt, yt, None, Z=Z, cg_maxiter=cut, **kw)
+    assert all(torch.isfinite(t).all() for t in g)
+    g = ti.grad_iterative(gt, yt, None, Z=Z, cg_maxiter=0, **kw)
+    assert all(torch.isnan(t).all() for t in g)

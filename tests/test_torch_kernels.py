@@ -143,3 +143,26 @@ def test_bias_is_not_squared():
     K = k.matrix(p, torch.zeros(4, 3, dtype=F64), torch.zeros(2, 3,
                                                              dtype=F64))
     assert torch.all(K == 0.3)
+
+
+@pytest.mark.parametrize("drop", [None, "Sigma"])
+def test_check_params_matches_jax(drop):
+    """kernels.base.check_params: silent on complete parameters, the
+    same ValueError text as JAX's on missing ones."""
+    from gp_ss_ak_tpu.kernels.base import check_params as j_check
+    from gp_ss_ak_torch.kernels.base import check_params as t_check
+
+    jker, tker = jk.ExpAns(), tk.ExpAns()
+    jp = {k: v for k, v in jker.init_params(jnp.float64).items()
+          if k != drop}
+    tp = {k: v for k, v in tker.init_params(torch.float64,
+                                            torch.device("cpu")).items()
+          if k != drop}
+    if drop is None:
+        assert j_check(jker, jp) is None and t_check(tker, tp) is None
+        return
+    with pytest.raises(ValueError) as je:
+        j_check(jker, jp)
+    with pytest.raises(ValueError) as te:
+        t_check(tker, tp)
+    assert str(te.value) == str(je.value) == "ExpAns: missing params ['Sigma']"

@@ -18,8 +18,16 @@ package's dense references at 1e-8 (the matvec 1e-12) and to JAX's ring
 functions at 1e-7 (matvec) and 1e-5 (the solves, which amplify it), with
 CG iteration counts within one. The two pivoted-Cholesky builds 1e-12;
 fit_ring's x rtol 1e-6 after two iterations.
+
+A solve cut short (two ranks): CG stopped after 3 iterations is
+"unconverged" and keeps JAX's value and gradient (rtol 1e-8, the
+converged case's) and fit_ring's steps (x rtol 1e-6, the same stop
+reason), warning once per fit and once per predict; stopped after none
+it is "failed", and the port's value, gradient and predict are NaN
+where JAX's stay finite (the witness of the deliberate difference).
 """
 
+import re
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -101,6 +109,18 @@ def _jax_side(world, data):
                          probes=4, slq_probes=4, lanczos_iters=8,
                          cg_tol=1e-10)
     out["fit_x"], out["fit_iters"] = np.asarray(res.x), res.n_iters
+    if world == 2:
+        for key, maxiter in (("short", 3), ("failed", 0)):
+            v, g, st = jp.make_ring_nlml_and_grad(
+                k, mesh, n=n, with_stats=True,
+                **{**OPTS, "cg_maxiter": maxiter})(flat, Xs, ys)
+            out[key + "_v"], out[key + "_g"], out[key + "_stats"] = (
+                float(v), np.asarray(g), np.asarray(st))
+        _, res = jp.fit_ring(model, X, y, mesh, nb=NB, iters=2,
+                             precond_rank=8, probes=4, slq_probes=4,
+                             lanczos_iters=8, cg_tol=1e-10, cg_maxiter=3)
+        out["short_fit_x"], out["short_fit_stop"] = (np.asarray(res.x),
+                                                     res.stop_reason)
     if world == 4:
         mesh2 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
                      ("chains", jp.ROW_AXIS))
@@ -241,3 +261,35 @@ def test_two_level_ring_matches_jax(runs):
         np.testing.assert_allclose(r["two_v"], jx["two_v"], rtol=1e-8)
         for c in range(2):
             _close(r["two_g"][c], jx["two_g"][c], 1e-8)
+
+
+def test_ring_solve_cut_short_is_flagged_or_nan(runs):
+    _, jx, ranks = runs[2]
+    for r in ranks:
+        # unconverged: JAX's value and gradient, its residual above tol
+        assert int(r["short_stats"][0]) == int(jx["short_stats"][0]) == 3
+        assert 1e-10 < r["short_stats"][1] < 1
+        assert float(r["short_v"]) == pytest.approx(jx["short_v"], rel=1e-8)
+        _close(r["short_g"], jx["short_g"], 1e-8)
+        # failed: NaN in the port, finite in JAX
+        assert np.isnan(r["failed_v"]) and np.isnan(r["failed_g"]).all()
+        assert np.isfinite(jx["failed_v"])
+        assert np.isfinite(jx["failed_g"]).all()
+        assert float(r["failed_stats"][1]) == 1.0
+        # the evaluations return their residuals and do not warn; the
+        # predict warns for its unconverged solve and is NaN for its
+        # failed one; the fit warns once, naming its count
+        assert int(r["warn_evals"]) == 0
+        assert np.isfinite(r["short_rpred_mu"]).all()
+        assert np.isnan(r["failed_rpred_mu"]).all()
+        assert np.isnan(r["failed_rpred_var"]).all()
+        msgs = list(r["warnings"])
+        assert len(msgs) == 2
+        assert msgs[0].startswith("ring predict: 1 of 1 CG solves")
+        bad, evals = map(int, re.match(r"fit_ring: (\d+) of (\d+) CG "
+                                       r"solves", msgs[1]).groups())
+        assert 0 < bad <= evals == int(r["short_fit_evals"])
+        assert "cg_tol 1e-10" in msgs[1]
+        np.testing.assert_allclose(r["short_fit_x"], jx["short_fit_x"],
+                                   rtol=1e-6)
+        assert str(r["short_fit_stop"]) == jx["short_fit_stop"]

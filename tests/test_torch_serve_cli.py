@@ -246,6 +246,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import gp_ss_ak_torch.parallel.multihost\n"
         "import gp_ss_ak_torch.parallel.pchol, gp_ss_ak_torch.parallel.nlml\n"
         "import gp_ss_ak_torch.parallel.fit, gp_ss_ak_torch.parallel.ring\n"
+        "import gp_ss_ak_torch.examples.full_workflow\n"
+        "import gp_ss_ak_torch.examples.bayes_workflow\n"
+        "import gp_ss_ak_torch.examples.distributed_workflow\n"
+        "import gp_ss_ak_torch.examples.ring_workflow\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'jaxlib',"
         " 'gp_ss_ak_tpu')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

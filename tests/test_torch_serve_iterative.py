@@ -7,10 +7,16 @@ float32 round-off in another order, so they agree at the solve
 tolerance, not bitwise: mu within rtol/atol 2e-3 and var within rtol
 5e-3, atol 5e-4 (the JAX test's own bounds against the dense
 Predictor, tests/test_utils_serve.py), and the setup's iteration count
-within 2 of JAX's.
+within 2 of JAX's. Cut short at 6 CG iterations the solves are
+"unconverged" (inference.iterative.solve_state) and keep JAX's
+predictions at those tolerances, with one warning per server; with no
+iteration they "fail" and the port's means and variances are NaN where
+JAX's stay finite.
 """
 
 from dataclasses import replace
+
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +29,7 @@ import gp_ss_ak_torch.model as tm
 import gp_ss_ak_torch.serve as tserve
 from gp_ss_ak_tpu.inference import WarpedGaussian as JWarped
 from gp_ss_ak_torch.inference import WarpedGaussian as TWarped
+from gp_ss_ak_torch.inference.iterative import UnconvergedSolveWarning
 from gp_ss_ak_torch.ops import matvec, pairwise
 
 CPU = torch.device("cpu")
@@ -157,3 +164,31 @@ def test_warped_is_not_ported():
     for a, b in zip(lat_t, lat_j):
         np.testing.assert_allclose(a, b, rtol=5e-3, atol=2e-3)
     assert not np.allclose(lat_t[0], mu_t, rtol=1e-2)
+
+
+def test_solves_cut_short_warn_once_or_give_nan():
+    mj, mt, X, y = make()
+    Xs = np.random.default_rng(8).uniform(-1, 1, (64, 3))
+    kw = dict(precond_rank=64, cg_tol=1e-6, chunk=128, cg_maxiter=6)
+    sj = jserve.IterativePredictor(mj, X, y, **kw)
+    mu_j, var_j = sj(Xs, batch_size=32)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        st = tserve.IterativePredictor(mt, X, y, **kw)
+        mu_t, var_t = st(Xs, batch_size=32)
+    assert [w.category for w in seen] == [UnconvergedSolveWarning]
+    assert str(seen[0].message).startswith("IterativePredictor (setup)")
+    assert 1e-6 < st.setup_rel_residual < 1
+    assert 1e-6 < st.last_rel_residual < 1
+    assert st.setup_cg_iters == st.last_cg_iters == 6
+    np.testing.assert_allclose(mu_t, mu_j, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(var_t, var_j, rtol=5e-3, atol=5e-4)
+
+    kw["cg_maxiter"] = 0
+    mu_j, var_j = jserve.IterativePredictor(mj, X, y, **kw)(Xs,
+                                                          batch_size=64)
+    st = tserve.IterativePredictor(mt, X, y, **kw)
+    mu_t, var_t = st(Xs, batch_size=64)
+    assert st.setup_rel_residual == st.last_rel_residual == 1.0
+    assert np.isnan(mu_t).all() and np.isnan(var_t).all()
+    assert np.isfinite(mu_j).all() and np.isfinite(var_j).all()

@@ -136,6 +136,42 @@ def test_train_iterative_engine_on_the_cpu(ore, capsys):
     assert np.all(np.isfinite(_model_values(ore / "mi")))
 
 
+def test_train_prints_unconverged_solves_on_stderr(ore, capsys,
+                                                  monkeypatch):
+    """A segmented fit (stream mode at any N) whose CG is cut at 3
+    iterations under a rank-8 preconditioner: the CLI prints the fit's
+    UnconvergedSolveWarning as one line on stderr, stdout keeps its two
+    numbers (the JAX CLI's layout), and the training-set server's own
+    cut-short solve warns once more."""
+    import gp_ss_ak_torch.optim as optim
+    from gp_ss_ak_torch import serve
+
+    fit, server = optim.fit, serve.IterativePredictor
+    short = dict(cg_maxiter=3, precond_rank=8)
+
+    def short_fit(*args, **kw):
+        kw["engine_opts"] = dict(kw.get("engine_opts") or {}, **short)
+        return fit(*args, **kw)
+
+    def short_server(*args, **kw):
+        return server(*args, **short, **kw)
+
+    monkeypatch.setattr(optim, "fit", short_fit)
+    monkeypatch.setattr(serve, "IterativePredictor", short_server)
+    assert torch_main(["train", "--device", "cpu", "--engine", "iterative",
+                       "--segmented", "-#", "2", str(ore / "train.txt"),
+                       str(ore / "mi")]) == 0
+    captured = capsys.readouterr()
+    _numbers(captured.out)
+    assert len(captured.out.strip().splitlines()) == 2
+    err = captured.err.strip().splitlines()
+    assert len(err) == 2, err
+    assert re.fullmatch(r"Warning: fit: \d+ of \d+ CG solves ended "
+                        r"unconverged, largest relative residual \S+ > "
+                        r"cg_tol 0.001 \(.*\)", err[0]), err[0]
+    assert err[1].startswith("Warning: IterativePredictor (setup): 1 of 1")
+
+
 @pytest.mark.parametrize("lf", ["WarpGauss", "WarpGauss:tanh1:2"],
                          ids=["warp", "warp_family"])
 def test_train_warped_matches_jax_cli(ore, capsys, lf):

@@ -1,5 +1,6 @@
 """The ranks of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_ring.py, tests/test_torch_entry.py).
+tests/test_torch_ring.py, tests/test_torch_entry.py,
+tests/test_torch_examples.py).
 
     python tests/torch_mesh_worker.py WORKDIR WORLD [WORLD ...]
 
@@ -216,6 +217,9 @@ def suite_ring(mesh, data, out):
     out["fit_x"], out["fit_iters"] = np.asarray(res.x), np.asarray(
         res.n_iters)
 
+    if mesh.size == 2:
+        _ring_stopped_short(mesh, data, out, model, Xl, yl, opts)
+
     if mesh.size == 4:
         two = tp.two_level_mesh(rows_per_host=2, device="cpu",
                                 backend="gloo")
@@ -226,6 +230,66 @@ def suite_ring(mesh, data, out):
         v, g = tp.make_two_level_ring_nlml_and_grad(k, two, n, **opts2)(
             _t(data["flats2"]), X2l, y2l)
         out["two_v"], out["two_g"] = v.numpy(), g.numpy()
+
+
+def _ring_stopped_short(mesh, data, out, model, Xl, yl, opts):
+    """The ring's solves cut short (inference.iterative.solve_state):
+    CG stopped after 3 iterations (unconverged) or none (failed), in the
+    evaluation, the predict and fit_ring; the UnconvergedSolveWarnings
+    they raise, counted."""
+    import warnings
+
+    from gp_ss_ak_torch import parallel as tp
+    from gp_ss_ak_torch.inference.iterative import UnconvergedSolveWarning
+
+    k, flat, n = model.kernel, _t(data["flat"]), data["X"].shape[0]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for key, maxiter in (("short", 3), ("failed", 0)):
+            v, g, st = tp.make_ring_nlml_and_grad(
+                k, mesh, n, **{**opts, "cg_maxiter": maxiter})(flat, Xl, yl)
+            out[key + "_v"], out[key + "_g"] = v.numpy(), g.numpy()
+            out[key + "_stats"] = st.numpy()
+        out["warn_evals"] = np.asarray(len(seen))
+        for key, maxiter in (("short", 3), ("failed", 0)):
+            mu, var = tp.make_ring_predict(k, mesh, n, tol=1e-10,
+                                           maxiter=maxiter, precond_rank=8)(
+                flat, Xl, yl, _t(data["Xq"]))
+            out[key + "_rpred_mu"], out[key + "_rpred_var"] = \
+                mu.numpy(), var.numpy()
+        _, res = tp.fit_ring(model, data["X"], data["y"], mesh,
+                             nb=int(data["nb"]), iters=2, precond_rank=8,
+                             probes=4, slq_probes=4, lanczos_iters=8,
+                             cg_tol=1e-10, cg_maxiter=3)
+    out["short_fit_x"] = np.asarray(res.x)
+    out["short_fit_stop"] = np.asarray(res.stop_reason)
+    out["short_fit_evals"] = np.asarray(res.n_evals)
+    out["warnings"] = np.asarray([str(w.message) for w in seen
+                                  if w.category is UnconvergedSolveWarning])
+
+
+def suite_examples(mesh, data, out):
+    """The mesh examples (gp_ss_ak_torch/examples) on this world of
+    ranks: distributed_workflow at its defaults, ring_workflow and
+    bayes_workflow with the iterations and sample counts `data` gives."""
+    from gp_ss_ak_torch.examples import (
+        bayes_workflow,
+        distributed_workflow,
+        ring_workflow,
+    )
+
+    d = distributed_workflow.main(device="cpu")
+    out["dist_fun"], out["dist_trace0"] = (np.asarray(d["res"].fun),
+                                           np.asarray(d["res"].trace[0]))
+    out["dist_mu"], out["dist_mu_ring"] = d["mu"], d["mu_ring"]
+    r = ring_workflow.main(device="cpu", iters=int(data["ring_iters"]))
+    out["ring_fun"], out["ring_mse"] = np.asarray(r["res"].fun), \
+        np.asarray(r["mse"])
+    out["ring_cg_rel"] = np.asarray(r["cg_rel"])
+    b = bayes_workflow.main(device="cpu", n_samples=int(data["samples"]),
+                            n_warmup=int(data["warmup"]))
+    out["bayes_theta"] = b["theta"].numpy()
+    out["bayes_mu"], out["bayes_var"] = b["mu"], b["var"]
 
 
 def suite_dryrun(mesh, data, out):
@@ -310,9 +374,8 @@ def run_rank(rank: int, world: int, port: int, wdir: str) -> int:
     with np.load(os.path.join(wdir, "in.npz")) as f:
         data = dict(f)
     out = {}
-    {"dist": suite_dist, "ring": suite_ring,
-     "dryrun": suite_dryrun}[str(data["suite"])](
-        mesh, data, out)
+    {"dist": suite_dist, "ring": suite_ring, "dryrun": suite_dryrun,
+     "examples": suite_examples}[str(data["suite"])](mesh, data, out)
     np.savez(os.path.join(wdir, f"rank{rank}.npz"), **out)
     assert "jax" not in sys.modules and "gp_ss_ak_tpu" not in sys.modules
     return 0
