@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
+    python3 chip_smoke.py --only k2       (phases 1, 2, 5 and 14: K2 alone)
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
@@ -14,9 +15,12 @@ NVIDIA GPU.
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
   2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
-     (csrc/matvec.cu) and K3 (csrc/matmat.cu) into one library, one nvcc
-     per source; ptxas's register report (no spills in K3's wide tile)
-     and the HMMA count of K3's SASS (cuobjdump);
+     (csrc/matvec.cu) and K3 (csrc/matmat.cu) and the ex2 probe
+     (csrc/ex2_probe.cu) into one library, one nvcc per source; ptxas's
+     register report (no spills in K3's wide tile, K2 or the probe), the
+     HMMA count of K3's SASS (cuobjdump), K2's opcode histograms (no FRND
+     or F2I), the issue slots per Gram entry of its d = 3 inner loop and
+     per exponential of the probe's;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
   4. K3 against its plain version in float64, at ragged sizes, at the
@@ -26,10 +30,15 @@ Phases, each of which raises on failure (nothing is caught):
      tiles, plus timings at those widths (and B = 65, the wide tile's
      first), the SM clock while the widest runs, and a cuBLAS yardstick
      on a prebuilt K;
-  5. K2 against its plain version in float64 at ragged sizes and at
-     N = 16384, 32768 (the K2 path's) and 65536, the same gate and TF32
-     control, two passes for equal bits, and its time beside its bound
-     and K3 at B = 1;
+  5. the ex2 probe: 2^x per SM per clock on MUFU and as K2's polynomial
+     on the FP32 pipes; K2 against its plain version in float64 at
+     ragged sizes (d = 2, 3, 4, 5) and at N = 16384, 32768 (the K2
+     path's) and 65536, the same gate and TF32 control, two passes for
+     equal bits, the diagonal exactly s2 in both classes of its ex2
+     split, and its time at those three N beside its bound, the
+     MUFU-only term, the SASS model, K3 at B = 1 and the plain version;
+     at N = 100000 and 150000 also the gate and K2's time under its slab
+     plan beside 16 slabs and beside one wave of slabs, floored;
   6. the golden fixture (tests/golden) through K1 in float64;
   7. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
      float32 on a synthetic ore body, N_train = 16384, N_test = 4096;
@@ -238,13 +247,17 @@ MODE_XM_REL = 1e-2
 PEAK_BYTES_S, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
 SFU_PER_SM_CLOCK = 16
 # an ex2 computed on the FP32 pipes instead of MUFU, at MUFU's float32
-# accuracy (ex2.approx, ~2 ulp): x = i + f with i = floor(x) (1 FRND) and
-# f = x - i (1 FADD), 2^f by a degree-5 minimax polynomial in Horner form
-# (5 FFMA), 2^i added to the exponent bits by integer ops, which run on
-# the INT32 pipe and are not counted (so the term stays a floor): 7
-# instruction slots of the FP32 pipes, which take PEAK_FP32_FLOPS / 2
-# instructions a second
-POLY_EX2_FP32_SLOTS = 7
+# accuracy (gp_ss_ak_torch/csrc/ex2_poly.cuh, 1.6 ulp): the clamp at -126
+# (1 FMNMX), x = j + f with j rounded by adding and subtracting 1.5 * 2^23
+# and f = x - j (3 FADD), 2^f by a degree-5 polynomial in Horner form (5
+# FFMA), 2^j added to the exponent bits (1 LEA). 10 issue slots in its
+# SASS (phase 2; no FRND or F2I, which issue at MUFU's quarter rate), and
+# an integer slot costs as much as an FP32 one, since an SM dispatches
+# 128 instructions a clock to all its pipes together, which is
+# PEAK_FP32_FLOPS / 2 a second. The ex2 probe (phase 5) measured 12.37 of
+# them per SM per clock on an H100 80GB HBM3 at 700 W, 10.3 slots each,
+# and MUFU 15.99
+POLY_EX2_SLOTS = 10
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
@@ -457,16 +470,16 @@ def sfu_fma_ms(work, sms: int, clock_hz: float):
     MUFU-only prices every rsqrt and ex2 at MUFU's 16 per SM per clock,
     beside the FP32 work on its pipes: a floor only for a kernel that
     computes both on MUFU. Balanced lets x of the ex2 stay on MUFU and
-    computes the rest as a polynomial on the FP32 pipes
-    (POLY_EX2_FP32_SLOTS slots each, as FlashAttention-4 does), and takes
-    the best x, where the two units finish together (clamped to [0, all
-    ex2]). The FP32 work counts as FMAs (two flops a slot), a floor."""
+    computes the rest as a polynomial on the FP32 pipes (POLY_EX2_SLOTS
+    issue slots each, as FlashAttention-4 does), and takes the best x,
+    where the two units finish together (clamped to [0, all ex2]). The
+    FP32 work counts as FMAs (two flops a slot), a floor."""
     _, fp32, sfu, _ = work
     mufu = sms * SFU_PER_SM_CLOCK * clock_hz          # operations / s
     slots = PEAK_FP32_FLOPS / 2.0              # FP32 instructions / s
     rsqrt = ex2 = sfu / 2.0
     f = fp32 / 2.0
-    c = POLY_EX2_FP32_SLOTS
+    c = POLY_EX2_SLOTS
     mufu_only = max((rsqrt + ex2) / mufu, f / slots)
     x = (mufu * (f + c * ex2) - slots * rsqrt) / (slots + c * mufu)
     x = min(max(x, 0.0), ex2)
@@ -500,7 +513,7 @@ def sfu_shares(work, ms: float) -> str:
     mufu_only, balanced = sfu_fma_ms(work, **card_rates())
     return (f"SFU bounds: MUFU-only {mufu_only:.4f} ms (kernel at "
             f"{mufu_only / ms:.3f}), balanced with "
-            f"{POLY_EX2_FP32_SLOTS}-slot polynomial ex2 {balanced:.4f} ms "
+            f"{POLY_EX2_SLOTS}-slot polynomial ex2 {balanced:.4f} ms "
             f"(kernel at {balanced / ms:.3f})")
 
 
@@ -551,6 +564,141 @@ def phase_device():
           f"max SM clock {card_rates()['clock_hz'] / 1e6:.0f} MHz")
 
 
+# one instruction of cuobjdump -sass: its address, opcode and operands
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)([^;]*);")
+#: opcodes an ex2 on the FP32 pipes must not use: on sm_90 they issue at
+#: MUFU's quarter rate (CUDA C++ Programming Guide, arithmetic throughput)
+SLOW_OPCODES = ("FRND", "F2I")
+
+
+def sass_functions(sass: str):
+    """{function name: [(address, opcode, operands)]} of cuobjdump -sass
+    output."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        out[name] = [(int(a, 16), op, rest.strip())
+                     for a, op, rest in _SASS_INSN.findall(part)]
+    return out
+
+
+def _opcode_key(op: str) -> str:
+    """An opcode without its modifiers, except MUFU's function and LDS's
+    width (MUFU.EX2, LDS.128)."""
+    parts = op.split(".")
+    return ".".join(parts[:2]) if parts[0] in ("MUFU", "LDS") else parts[0]
+
+
+def opcode_histogram(insns):
+    """{opcode: count} of `insns`, NOPs left out (they fill the tail)."""
+    hist = {}
+    for _, op, _ in insns:
+        key = _opcode_key(op)
+        if key != "NOP":
+            hist[key] = hist.get(key, 0) + 1
+    return dict(sorted(hist.items(), key=lambda kv: (-kv[1], kv[0])))
+
+
+def innermost_loop(insns, marker: str):
+    """The instructions of the smallest loop of `insns` (a backward BRA
+    and its target) that holds an opcode starting with `marker`, or
+    None."""
+    best = None
+    for addr, op, rest in insns:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op.split(".")[0] != "BRA" or m is None:
+            continue
+        top = int(m.group(1), 16)
+        body = [i for i in insns if top <= i[0] <= addr]
+        if top < addr and any(o.startswith(marker) for _, o, _ in body) \
+                and (best is None or len(body) < len(best)):
+            best = body
+    return best
+
+
+_INT_OPCODES = {"IADD3", "IMAD", "LEA", "SHF", "LOP3", "ISETP", "SEL",
+                "PRMT", "IABS", "IMNMX", "IADD", "IMUL", "SHL", "SHR"}
+
+
+def issue_classes(hist, per: float):
+    """Issue slots of a histogram by kind, divided by `per`: FP32 (F*
+    arithmetic, compares and selects), INT (integer arithmetic and
+    logic), MUFU, conversions, shared/global memory and the rest; and
+    their total."""
+    kinds = {"FP32": 0, "INT": 0, "MUFU": 0, "conversion": 0, "memory": 0,
+             "other": 0}
+    for key, k in hist.items():
+        base = key.split(".")[0]
+        if base == "MUFU":
+            kind = "MUFU"
+        elif base in ("F2I", "I2F", "F2F", "F2FP", "I2I"):
+            kind = "conversion"
+        elif base.startswith("F"):
+            kind = "FP32"
+        elif base in _INT_OPCODES:
+            kind = "INT"
+        elif base[:2] in ("LD", "ST"):
+            kind = "memory"
+        else:
+            kind = "other"
+        kinds[kind] += k
+    out = {k: v / per for k, v in kinds.items()}
+    out["total"] = sum(hist.values()) / per
+    return out
+
+
+def _fmt_classes(c) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in c.items())
+
+
+def k2_sass_report(sass: str):
+    """Phase 2's reading of K2's and the ex2 probe's SASS: each K2
+    kernel's opcode histogram (none may hold SLOW_OPCODES), the issue
+    slots per Gram entry of K2's d = 3 kernel's inner loop (an entry per
+    MUFU square root), and the slots per exponential of the probe's
+    loop (64 of them an iteration). Returns K2's slots per entry by kind
+    (`issue_classes`)."""
+    funcs = sass_functions(sass)
+    report = {"k2": {}, "ex2": {}}
+    for name, insns in funcs.items():
+        if "matvec" not in name and "ex2_probe" not in name:
+            continue
+        hist = opcode_histogram(insns)
+        slow = [op for op in hist if op.split(".")[0] in SLOW_OPCODES]
+        _check(not slow, f"{name}: {slow} in its SASS")
+        if "matvec" in name:
+            m = re.search(r"\d(matvec_[a-z]+)(?:ILi(\d+)E)?", name)
+            args = "" if m.group(2) is None else f"<{m.group(2)}>"
+            print(f"build: K2 {m.group(1)}{args} SASS opcodes: {hist}")
+        # the polynomial probe's loop holds no MUFU operation
+        loop = innermost_loop(insns, "FFMA" if "ILb1E" in name else "MUFU")
+        if loop is None:
+            continue
+        lhist = opcode_histogram(loop)
+        if "matvec_packed" in name:
+            entries = sum(v for k, v in lhist.items()
+                          if k in ("MUFU.SQRT", "MUFU.RSQ"))
+            c = issue_classes(lhist, entries)
+            report["k2"] = c
+            poly = entries - lhist.get("MUFU.EX2", 0)
+            print(f"build: K2 d<=3, {poly} of {entries} exponentials on "
+                  f"the polynomial: inner loop {len(loop)} instructions, "
+                  f"{entries} Gram entries; issue slots per entry: "
+                  f"{_fmt_classes(c)}; loop opcodes {lhist}")
+        elif "ex2_probe" in name:
+            kind = "poly" if "ILb1E" in name else "mufu"
+            c = issue_classes(lhist, 64)
+            report["ex2"][kind] = c
+            print(f"build: ex2 probe ({kind}): loop of {len(loop)} "
+                  f"instructions for 64 exponentials; issue slots per "
+                  f"ex2: {_fmt_classes(c)}; opcodes {lhist}")
+    _check(bool(report["k2"]) and set(report["ex2"]) == {"mufu", "poly"},
+           f"K2's or the probe's inner loop not found in the SASS: "
+           f"{ {k: sorted(v) for k, v in report.items()} }")
+    return report["k2"]
+
+
 def phase_build():
     from gp_ss_ak_torch.ops import _build
 
@@ -585,6 +733,14 @@ def phase_build():
     wide = [c for k, c in hmma.items() if "matmat_tc_kernel" in k]
     _check(len(wide) == len(spills) and min(wide) > 0,
            "K3's wide tile issues no HMMA")
+    # K2 and the ex2 probe: no spills, no slow opcodes, slots per entry
+    k2_spills = re.findall(r"Function properties for (\S*(?:matvec|ex2_probe)"
+                           r"\S*)\s+\d+ bytes stack frame, (\d+) bytes "
+                           r"spill stores, (\d+) bytes spill loads", log)
+    for name, st, ld in k2_spills:
+        _check(st == ld == "0", f"{name} spills: {st} bytes stored, {ld} "
+               f"loaded")
+    return k2_sass_report(sass)
 
 
 def phase_k1(device, seed: int, cases=None, time_shapes=True):
@@ -898,26 +1054,138 @@ def phase_k3(device, seed: int):
     return report
 
 
-def phase_k2(device, seed: int):
-    """K2 vs its plain version in float64 on the same inputs, held to
-    K3's gate per output with the TF32 control that it must reject; two
-    passes for equal bits; then CUDA event times beside the bound and K3
-    at B = 1 on the same inputs. Returns the report."""
+#: the fixed point of x = 2^-x, which every chain of the ex2 probe reaches
+EX2_FIXED_POINT = 0.6411857445049859
+#: K2's timed sizes (d = 3): the dense width, the K2 path's, the
+#: matrix-free path's
+K2_TIMED = (N_TRAIN, N_K2_PATH, N_ITER_TRAIN)
+#: K2's sizes off the powers of two (d = 3), each also timed under other
+#: column slab plans (k2_plans): configuration 3's N, and one past 135168,
+#: where an H100's 132 SMs take one 1024-row block each
+K2_PLANS_TIMED = (N_SEG, 150000)
+
+
+def k2_plans(n: int, sms: int):
+    """{name: (slab width, slab count)} of K2's column split at n on a
+    card of `sms` SMs: ops/matvec.matvec_slabs's plan, 16 slabs, and one
+    wave of blocks' worth of slabs, floored."""
+    from gp_ss_ak_torch.ops import matvec
+
+    def cut(k):
+        per = -(-n // k)
+        width = -(-per // matvec.MATVEC_TILE) * matvec.MATVEC_TILE
+        return width, -(-n // width)
+
+    rows = -(-n // matvec.MATVEC_ROWS)
+    return {"library plan": matvec.matvec_slabs(n, sms), "16 slabs": cut(16),
+            "one wave, floored": cut(max(1, sms * matvec.MATVEC_BLOCKS_PER_SM
+                                         // rows))}
+
+
+def k2_time_plan(Xk, scal, v, width: int, slabs: int):
+    """(ms, y) of K2's kernel alone, y = s2 exp(-dist) v with no bias or
+    noise, launched through the library's C entry with the given column
+    slabs (not counted as a launch of the main path)."""
+    import torch
+
+    from gp_ss_ak_torch.ops import _build
+
+    lib, n = _build.load(), v.shape[0]
+    partial = torch.empty((slabs, n), device=v.device)
+    y = torch.empty_like(v)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+
+    def run():
+        code = lib.gp_matvec_f32(Xk.data_ptr(), v.data_ptr(), scal.data_ptr(),
+                                 partial.data_ptr(), y.data_ptr(), n,
+                                 Xk.shape[1], 3, width, slabs,
+                                 v.device.index, stream)
+        _build.check(lib, code, "matvec kernel launch")
+
+    return time_ms(run, warmup=2, iters=10), y
+
+
+def ex2_probe(device, iters: int = 4096):
+    """Phase 5's ex2 probe (csrc/ex2_probe.cu) at full occupancy: 2^x per
+    SM per clock of the card's maximum SM clock, on MUFU and as the
+    polynomial on the FP32 pipes, with the SM clock read while the
+    polynomial runs; every chain must reach 2^-x's fixed point. Returns
+    {"mufu": rate, "poly": rate}."""
+    import torch
+
+    from gp_ss_ak_torch.ops import _build
+
+    lib = _build.load()
+    sms, clock = card_rates()["sms"], card_rates()["clock_hz"]
+    blocks = sms * 8                      # 8 blocks of 256 threads an SM
+    out = torch.empty(blocks * 256, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    count = blocks * 256 * lib.gp_ex2_probe_per_iter() * iters
+
+    def run(poly):
+        _build.check(lib, lib.gp_ex2_probe(out.data_ptr(), poly, iters,
+                                           blocks, device.index, stream),
+                     "ex2 probe launch")
+
+    rates = {}
+    for kind, poly in (("mufu", 0), ("poly", 1)):
+        ms = time_ms(lambda: run(poly), warmup=2, iters=10)
+        rates[kind] = count / (ms * 1e-3) / (sms * clock)
+        err = float((out / 8 - EX2_FIXED_POINT).abs().max())
+        print(f"ex2 probe ({kind}): {count:.4g} exponentials in {ms:.4f} "
+              f"ms = {rates[kind]:.3f} per SM per clock at "
+              f"{clock / 1e6:.0f} MHz ({128 / rates[kind]:.3f} issue slots "
+              f"of 128 per clock each); chains {err:.2e} from 2^-x's fixed "
+              f"point")
+        _check(err < 1e-6, f"ex2 probe ({kind}) missed the fixed point")
+    for _ in range(10):
+        run(1)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    print(f"ex2 probe (poly), read while it runs: SM clock, power draw "
+          f"{smi}; the polynomial runs at {rates['poly'] / rates['mufu']:.3f}"
+          f" of MUFU's rate")
+    return rates
+
+
+def sass_floor_ms(n: int, slots) -> float:
+    """The issue-slot model of one K2 pass from its SASS (phase 2's
+    slots per entry): MUFU at SFU_PER_SM_CLOCK an SM a clock and every
+    instruction at 128, whichever takes longer, at the card's maximum SM
+    clock."""
+    rates = card_rates()
+    per_entry = max(slots["MUFU"] / SFU_PER_SM_CLOCK, slots["total"] / 128)
+    return n * n * per_entry / (rates["sms"] * rates["clock_hz"]) * 1e3
+
+
+def phase_k2(device, seed: int, sass):
+    """The ex2 probe's rates; K2 vs its plain version in float64 on the
+    same inputs, held to K3's gate per output with the TF32 control that
+    it must reject; two passes for equal bits; the diagonal exactly s2
+    in both classes of the ex2 split and across slabs; then CUDA event
+    times at K2_TIMED beside the bound, the MUFU-only term, the SASS
+    model (phase 2's slots per entry `sass`), K3 at B = 1 on the same
+    inputs and the plain version; at K2_PLANS_TIMED the gate as well,
+    and the kernel's time under each of k2_plans. Returns the report."""
     import torch
 
     from gp_ss_ak_torch.ops import matvec
 
+    ex2_probe(device)
     scale = SIGMA * SIGMA + BIAS
     g = torch.Generator(device=device).manual_seed(seed + 2)
     report = {"max_abs_err": 0.0}
     worst_ratio, ctl_ratio = 0.0, float("inf")
-    for n, d in ((1000, 3), (1000, 4), (4097, 3), (4097, 5),
-                 (N_TRAIN, 3), (N_K2_PATH, 3), (N_ITER_TRAIN, 3)):
+    for n, d in ((1000, 3), (1000, 4), (4097, 2), (4097, 3), (4097, 5),
+                 (N_TRAIN, 3), (N_K2_PATH, 3), (N_ITER_TRAIN, 3),
+                 *((n, 3) for n in K2_PLANS_TIMED)):
         X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
         Xk, scal = matvec.operator_arrays(X, SIGMA)
         v = torch.randn(n, generator=g, device=device)
-        y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
-        y2 = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+        y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v, d)
+        y2 = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v, d)
         ref = matvec.streamed_matvec_plain(Xk.double(), scal.double(), BIAS,
                                            SN2, v.double())
         err = float((y.double() - ref).abs().max())
@@ -936,12 +1204,24 @@ def phase_k2(device, seed: int):
         report["max_abs_err"] = max(report["max_abs_err"], err)
         worst_ratio = max(worst_ratio, err / lim)
         ctl_ratio = min(ctl_ratio, cerr / lim)
-        if d == 3 and n in (N_TRAIN, N_ITER_TRAIN):
+        if n == 4097 and d == 3:
+            # K(i, i) = s2 exactly: columns 0-7 of a group cover both
+            # classes of the split; 259 and 4096 lie in other slabs
+            for i in (*range(8), 259, 4096):
+                e = torch.zeros(n, device=device)
+                e[i] = 1.0
+                yi = matvec.streamed_matvec(Xk, scal, 0.0, 0.0, e, d)
+                _check(yi[i].item() == scal.item(),
+                       f"K2's diagonal at {i} is {yi[i].item()!r}, not "
+                       f"s2 = {scal.item()!r}")
+            print(f"K2 n={n} d=3: K(i, i) = s2 exactly in both classes of "
+                  f"the split and across slabs")
+        if d == 3 and n in K2_TIMED:
             bias_t, sn2_t = (torch.tensor(x, device=device)
                              for x in (BIAS, SN2))
             V = v[:, None].contiguous()
             ms = time_ms(lambda: matvec.streamed_matvec(
-                Xk, scal, bias_t, sn2_t, v), warmup=3, iters=20)
+                Xk, scal, bias_t, sn2_t, v, d), warmup=3, iters=20)
             k3_ms = time_ms(lambda: matvec.streamed_matmat(
                 Xk, scal, bias_t, sn2_t, V), warmup=2, iters=10)
             plain_ms = time_ms(lambda: matvec.streamed_matvec_plain(
@@ -952,9 +1232,26 @@ def phase_k2(device, seed: int):
                   f"{b_ms:.4f} ms (set by {b_by}, kernel at "
                   f"{b_ms / ms:.3f} of it), K3 at B = 1 {k3_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms; "
-                  f"{sfu_shares(matvec_work(n, 3), ms)}")
+                  f"{sfu_shares(matvec_work(n, 3), ms)}; the SASS model's "
+                  f"floor {sass_floor_ms(n, sass):.4f} ms")
             report[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, k3_ms=k3_ms)
+        if n in K2_PLANS_TIMED:
+            plans = k2_plans(n, card_rates()["sms"])
+            times = {}
+            for name, plan in plans.items():
+                times[name], yp = k2_time_plan(Xk, scal, v, *plan)
+                perr = float((yp.double() + BIAS * float(v.double().sum())
+                              + SN2 * v.double() - ref).abs().max())
+                _check(perr <= lim, f"K2 at n={n} under {name} {plan} "
+                       f"disagrees: {perr:.3e} > {lim:.3e}")
+            b_ms, b_by = bound(matvec_work(n, 3), **card_rates())
+            print(f"K2 time N={n} d=3 f32 by column slab plan (width, "
+                  f"count): " + ", ".join(f"{name} {plan}: {times[name]:.4f}"
+                                          f" ms" for name, plan in
+                                          plans.items())
+                  + f"; each within the gate; bound {b_ms:.4f} ms (set by "
+                  f"{b_by})")
         del X, Xk, v, y, y2, ref
     print(f"K2: worst error {report['max_abs_err']:.3e}, worst at "
           f"{worst_ratio:.3e} of its limit; the TF32 control at no less "
@@ -4017,10 +4314,11 @@ def run_examples(zero, counts_k1):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3", "warped", "batched",
+    ap.add_argument("--only", choices=("k3", "k2", "warped", "batched",
                                        "sparse", "parallel", "segmented",
                                        "examples"),
-                    help="k3: phases 1, 2 and 4; warped: phases 1, 2, 9b, "
+                    help="k3: phases 1, 2 and 4; k2: phases 1, 2, 5 and "
+                         "14; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
                          "sparse: phases 1, 2 and 19-24; parallel: phases "
                          "1, 2 and 25-30; segmented: phases 1, 2 and "
@@ -4043,7 +4341,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     phase_device()
-    phase_build()
+    sass = phase_build()
     if args.only == "k3":
         phase_k3(device, args.seed)
         print(f"K3 phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -4066,6 +4364,16 @@ def main(argv=None) -> int:
         k1 = counts()[0]
         zero()
         return k1
+
+    if args.only == "k2":
+        phase_k2(device, args.seed, sass)
+        itrain, itest, imodel = write_case(WORK + "_iterative", args.seed,
+                                           N_ITER_TRAIN, N_ITER_TEST)
+        zero()
+        _check(phase_k2_path(device, args.seed, itrain, itest, imodel) > 0,
+               "the K2 path launched no K2")
+        print(f"K2 phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     if args.only == "parallel":
         dense = write_case(WORK, args.seed, N_TRAIN, N_TEST)
@@ -4117,7 +4425,7 @@ def main(argv=None) -> int:
         return 0
     k1 = phase_k1(device, args.seed)
     k3 = phase_k3(device, args.seed)
-    k2 = phase_k2(device, args.seed)
+    k2 = phase_k2(device, args.seed, sass)
     phase_golden(device)
     train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 

@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels (gp_ss_ak_torch/csrc).
 
-`nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`), one process
-per source, all started together, then links the objects into one
-shared library with a plain C interface, loaded with ctypes. Nothing
-here includes PyTorch's headers, so a build takes seconds (on the host
-of an H100 80GB HBM3 card: 4.6-5.0 s this way for gram.cu and
-matmat.cu, against 6.5-8.6 s for one nvcc over both; 4.1-4.2 s with
-matvec.cu added). The library goes
+`nvcc` compiles every `csrc/*.cu` (which may include `csrc/*.cuh`) for
+Hopper (`sm_90a`), one process per source, all started together, then
+links the objects into one shared library with a plain C interface,
+loaded with ctypes. Nothing here includes PyTorch's headers, so a build
+takes seconds (on the host of an H100 80GB HBM3 card: 4.6-5.0 s this
+way for gram.cu and matmat.cu, against 6.5-8.6 s for one nvcc over
+both; 6.6-7.1 s for all four sources). The library goes
 to `build/torch_kernels/` beside the package (listed in .gitignore),
 named by a hash of the sources and flags so a stale build is never
 reused. The build runs on first use, never at import: machines without
@@ -69,10 +69,15 @@ def _declare(lib) -> None:
     lib.gp_matmat_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                   ptr]
     lib.gp_matmat_f32.restype = i32
-    # x, v, scal, partial, y, n, dp, slab_w, slabs, device, stream
+    # x, v, scal, partial, y, n, dp, d, slab_w, slabs, device, stream
     lib.gp_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                  i32, i32, ptr]
+                                  i32, i32, i32, ptr]
     lib.gp_matvec_f32.restype = i32
+    # out, poly, iters, blocks, device, stream
+    lib.gp_ex2_probe.argtypes = [ptr, i32, i32, i32, i32, ptr]
+    lib.gp_ex2_probe.restype = i32
+    lib.gp_ex2_probe_per_iter.argtypes = []
+    lib.gp_ex2_probe_per_iter.restype = i32
     lib.gp_cuda_error_string.argtypes = [i32]
     lib.gp_cuda_error_string.restype = ctypes.c_char_p
 
@@ -115,7 +120,7 @@ def load():
         return _lib
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libgp_kernels_{h.hexdigest()[:16]}.so"

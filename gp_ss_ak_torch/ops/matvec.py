@@ -23,7 +23,11 @@ tensors:
                    order: two passes give equal bits.
   streamed_matvec  K2, csrc/matvec.cu (replaces
                    gp_ss_ak_tpu/ops/matvec.py::_matvec_kernel): one
-                   vector per pass; count `matvec_launches`.
+                   vector per pass; count `matvec_launches`. It takes
+                   the true feature count d (d <= 3 skips the padding)
+                   and computes a fixed share of its exponentials as a
+                   polynomial on the FP32 pipes (csrc/ex2_poly.cuh),
+                   the rest on MUFU.
 
 The plain versions run row chunks in plain torch and keep the TPU
 kernels' |xi|^2 + |xj|^2 - 2 xi.xj expansion and clamp, so CPU results
@@ -45,6 +49,8 @@ modes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gp_ss_ak_torch.kernels.distance import gram_sqdist, highest_precision
@@ -57,12 +63,20 @@ launches = 0
 #: number of times `streamed_matvec` has launched the CUDA kernel K2
 matvec_launches = 0
 
-#: K2 cuts the columns into at most this many slabs (a second grid axis,
-#: so that N = 65536 fills the card); partial sums go to a scratch buffer
-MATVEC_SLABS = 16
+#: K2's rows per block and the blocks an SM holds at once (csrc/matvec.cu
+#: BM and MIN_BLOCKS): the columns are cut into slabs (a second grid
+#: axis) so that the blocks come close to a whole number of waves;
+#: partial sums go to a scratch buffer
+MATVEC_ROWS = 1024
+MATVEC_BLOCKS_PER_SM = 2
 
 #: K2's column tile (csrc/matvec.cu BK): slab widths are multiples of it
 MATVEC_TILE = 256
+
+#: K2's widest slab, in columns: each row's partial sum over a slab is one
+#: float32 chain, kept no longer than the widest held to the gate on the
+#: card (N = 65536 in 4 slabs)
+MATVEC_MAX_SLAB = 16384
 
 #: rows per chunk of the plain version (no N x N buffer exists)
 PLAIN_CHUNK = 4096
@@ -163,12 +177,47 @@ def streamed_matmat(Xm: torch.Tensor, scal: torch.Tensor, bias, sn2,
     return _bias_noise(_launch(Xm, scal, V), bias, sn2, V)
 
 
-def matvec_slabs(n: int):
-    """(slab width, slab count) of K2's column split: a function of n
-    alone, so two passes over the same v sum in the same order."""
-    per = -(-n // MATVEC_SLABS)
-    width = -(-per // MATVEC_TILE) * MATVEC_TILE
-    return width, -(-n // width)
+def matvec_slabs(n: int, sms: int):
+    """(slab width, slab count) of K2's column split on a card of `sms`
+    SMs. Each (row block, slab) pair is a block, an SM holds
+    MATVEC_BLOCKS_PER_SM of them at a time, and each takes time in
+    proportion to its slab's width, so a pass takes about
+    ceil(blocks / wave) slab widths. The plan takes the fewest slabs
+    (whole tiles, at most MATVEC_MAX_SLAB columns each) whose pass is
+    within 2% of the shortest of up to 64 more. A function of n and the
+    card alone, so two passes over the same v sum in the same order."""
+    rows = -(-n // MATVEC_ROWS)
+    wave = sms * MATVEC_BLOCKS_PER_SM
+    least = -(-n // MATVEC_MAX_SLAB)
+    plans = []
+    for k in range(least, min(-(-n // MATVEC_TILE), least + 64) + 1):
+        per = -(-n // k)
+        width = -(-per // MATVEC_TILE) * MATVEC_TILE
+        slabs = -(-n // width)
+        plans.append((-(-rows * slabs // wave) * width, slabs, width))
+    best = min(t for t, _, _ in plans)
+    _, slabs, width = next(p for p in plans if p[0] <= 1.02 * best)
+    return width, slabs
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def feature_count(Xm: torch.Tensor, d=None) -> int:
+    """The true feature count of points Xm (n, dp) zero-padded from d
+    features (operator_arrays): dp if d is None; else d, which must
+    satisfy d <= dp <= d rounded up to a multiple of 4."""
+    dp = Xm.shape[-1]
+    if d is None:
+        return dp
+    if isinstance(d, bool) or not isinstance(d, int):
+        raise TypeError(f"streamed_matvec: d must be an int, got {d!r}")
+    if not 1 <= d <= dp <= -(-d // 4) * 4:
+        raise ValueError(f"streamed_matvec: d = {d} features cannot be "
+                         f"padded to Xm's {dp}")
+    return d
 
 
 def streamed_matvec_plain(Xm: torch.Tensor, scal: torch.Tensor, bias, sn2,
@@ -179,8 +228,8 @@ def streamed_matvec_plain(Xm: torch.Tensor, scal: torch.Tensor, bias, sn2,
     return streamed_matmat_plain(Xm, scal, bias, sn2, v[:, None])[:, 0]
 
 
-def _launch_matvec(X: torch.Tensor, scal: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
+def _launch_matvec(X: torch.Tensor, scal: torch.Tensor, v: torch.Tensor,
+                   d: int) -> torch.Tensor:
     global matvec_launches
     for name, t in (("Xm", X), ("scal", scal), ("v", v)):
         if t.dtype != torch.float32:
@@ -196,13 +245,13 @@ def _launch_matvec(X: torch.Tensor, scal: torch.Tensor,
                          f"got {tuple(X.shape)} and {tuple(v.shape)}")
     if scal.numel() != 1:
         raise ValueError("streamed_matvec: scal must be [sigma^2]")
-    n, d = X.shape
-    if d % 4 or d > MAX_FEATURES or X.data_ptr() % 16:
+    n, dp = X.shape
+    if dp % 4 or dp > MAX_FEATURES or X.data_ptr() % 16:
         raise ValueError("streamed_matvec: Xm must come from "
                          "operator_arrays (features padded to a multiple "
                          f"of 4, at most {MAX_FEATURES}, 16-byte aligned)")
-    width, slabs = matvec_slabs(max(n, 1))
-    if n * max(d, slabs) >= 2 ** 31:
+    width, slabs = matvec_slabs(max(n, 1), _sm_count(v.device.index))
+    if n * max(dp, slabs) >= 2 ** 31:
         raise ValueError("streamed_matvec: sizes must fit in int32")
     y = torch.empty_like(v)
     if n == 0:
@@ -211,25 +260,28 @@ def _launch_matvec(X: torch.Tensor, scal: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     code = lib.gp_matvec_f32(X.data_ptr(), v.data_ptr(), scal.data_ptr(),
-                             partial.data_ptr(), y.data_ptr(), n, d, width,
-                             slabs, v.device.index, stream)
+                             partial.data_ptr(), y.data_ptr(), n, dp, d,
+                             width, slabs, v.device.index, stream)
     _build.check(lib, code, "matvec kernel launch")
     matvec_launches += 1
     return y
 
 
 def streamed_matvec(Xm: torch.Tensor, scal: torch.Tensor, bias, sn2,
-                    v: torch.Tensor) -> torch.Tensor:
+                    v: torch.Tensor, d=None) -> torch.Tensor:
     """A @ v for one vector v (n,). Xm and scal come from
     `operator_arrays` (the plain version takes any (n, d) points); bias
-    and sn2 are Python floats or 0-d tensors. CUDA tensors launch K2
+    and sn2 are Python floats or 0-d tensors; d is the points' true
+    feature count before padding (`feature_count`; Xm's width if None),
+    which the kernel needs to skip the padding. CUDA tensors launch K2
     (float32, contiguous), CPU tensors run the plain version."""
+    d = feature_count(Xm, d)
     if v.device.type == "cpu":
         return streamed_matvec_plain(Xm, scal, bias, sn2, v)
     if v.device.type != "cuda":
         raise ValueError(f"streamed_matvec: no kernel for device "
                          f"{v.device}")
-    return _bias_noise(_launch_matvec(Xm, scal, v), bias, sn2, v)
+    return _bias_noise(_launch_matvec(Xm, scal, v, d), bias, sn2, v)
 
 
 class MatvecOperator:
@@ -243,7 +295,7 @@ class MatvecOperator:
     def __init__(self, Xm: torch.Tensor, sigma, bias, sn2):
         f32 = torch.float32
         Xm = Xm.to(f32)
-        self.n = Xm.shape[0]
+        self.n, self.d = Xm.shape
         self.X, self.scal = operator_arrays(Xm, sigma)
         self.sigma = torch.as_tensor(sigma, dtype=f32, device=Xm.device)
         self.bias = torch.as_tensor(bias, dtype=f32, device=Xm.device)
@@ -251,7 +303,7 @@ class MatvecOperator:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return streamed_matvec(self.X, self.scal, self.bias, self.sn2,
-                               v.to(torch.float32).contiguous())
+                               v.to(torch.float32).contiguous(), self.d)
 
     def matmat(self, V: torch.Tensor) -> torch.Tensor:
         """A @ V for V (n, B): all B columns ride one pass."""

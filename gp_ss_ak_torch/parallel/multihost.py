@@ -65,6 +65,18 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+#: launches `launch_local` makes in all when the port it chose was taken
+#: before rank 0 could bind it (under a loaded test run two launches in
+#: a row have lost their port)
+LAUNCH_ATTEMPTS = 5
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def launch_local(argv, world: int, workdir: str, timeout: float,
                  env: Optional[dict] = None, cwd: Optional[str] = None,
                  poll_s: float = 0.05) -> float:
@@ -74,12 +86,26 @@ def launch_local(argv, world: int, workdir: str, timeout: float,
     LOCAL_RANK) on top of `env` (default os.environ), and writes its
     output to workdir/rank<r>.log. The first rank to fail, or a run past
     `timeout` seconds, stops them all and raises RuntimeError with the
-    end of every rank's log. Returns the launch's wall seconds."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    end of every rank's log. The port is free when chosen, but a
+    process of this machine may take it before rank 0 binds it (the
+    ranks take seconds to start): a launch that fails so (EADDRINUSE in
+    a rank's log) starts again on another port, up to LAUNCH_ATTEMPTS
+    launches in all. Returns the last launch's wall seconds."""
+    for attempt in range(1, LAUNCH_ATTEMPTS + 1):
+        wall, failed, tails = _launch_once(argv, world, workdir, timeout,
+                                           env, cwd, poll_s)
+        if failed is None:
+            return wall
+        if attempt == LAUNCH_ATTEMPTS or "EADDRINUSE" not in tails:
+            raise RuntimeError(f"{world} local ranks of {argv[1:]}: rank "
+                               f"{failed} failed\n" + tails)
+
+
+def _launch_once(argv, world, workdir, timeout, env, cwd, poll_s):
+    """One launch of launch_local: (wall seconds, the failed rank or
+    "timeout" or None, the end of every rank's log if one failed)."""
     base = dict(os.environ if env is None else env, MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
                 LOCAL_WORLD_SIZE=str(world))
     os.makedirs(workdir, exist_ok=True)
     logs = [os.path.join(workdir, f"rank{r}.log") for r in range(world)]
@@ -110,14 +136,12 @@ def launch_local(argv, world: int, workdir: str, timeout: float,
                 p.kill()
             p.wait()
     wall = time.perf_counter() - t0
+    tails = ""
     if failed is not None:
-        tails = []
         for r, path in enumerate(logs):
             with open(path) as f:
-                tails.append(f"--- rank {r}\n{f.read()[-4000:]}")
-        raise RuntimeError(f"{world} local ranks of {argv[1:]}: rank "
-                           f"{failed} failed\n" + "".join(tails))
-    return wall
+                tails += f"--- rank {r}\n{f.read()[-4000:]}"
+    return wall, failed, tails
 
 
 @dataclass(frozen=True)

@@ -139,3 +139,50 @@ def test_launch_local_stops_every_rank_at_the_first_failure(tmp_path):
                      str(tmp_path / "bad"), timeout=60)
     assert time.perf_counter() - t0 < 30
     assert "rank 0 of 2" in str(err.value) and "rank 1 of 2" in str(err.value)
+
+
+def test_launch_local_starts_again_when_its_port_was_taken(tmp_path,
+                                                           monkeypatch):
+    """A port that another process takes between launch_local's choice
+    and rank 0's bind (here one held by a listening socket) fails rank
+    0's store with EADDRINUSE: the launch starts again on another port,
+    and gives up after LAUNCH_ATTEMPTS launches on taken ports."""
+    import socket
+    import sys
+
+    from gp_ss_ak_torch.parallel import multihost
+
+    code = ("import datetime, os, torch.distributed as dist\n"
+            "r = int(os.environ['RANK'])\n"
+            "store = dist.TCPStore(os.environ['MASTER_ADDR'],\n"
+            "                      int(os.environ['MASTER_PORT']), 2, r == 0,\n"
+            "                      timeout=datetime.timedelta(seconds=60))\n"
+            "store.set(f'rank{r}', 'up')\n"
+            "store.wait(['rank0', 'rank1'])\n"
+            "print('port', os.environ['MASTER_PORT'])\n")
+    free = multihost._free_port
+    with socket.socket() as busy:
+        busy.bind(("127.0.0.1", 0))
+        busy.listen()
+        taken = busy.getsockname()[1]
+        chosen = []
+
+        def first_taken():
+            chosen.append(taken if not chosen else free())
+            return chosen[-1]
+
+        monkeypatch.setattr(multihost, "_free_port", first_taken)
+        multihost.launch_local([sys.executable, "-c", code], 2,
+                               str(tmp_path / "retry"), timeout=120)
+        # on a busy machine a free port too may be taken before the bind
+        assert 2 <= len(chosen) <= multihost.LAUNCH_ATTEMPTS
+        log = (tmp_path / "retry" / "rank0.log").read_text()
+        assert log.endswith(f"port {chosen[-1]}\n") and chosen[-1] != taken
+
+        chosen.clear()
+        monkeypatch.setattr(multihost, "_free_port",
+                            lambda: chosen.append(taken) or taken)
+        with pytest.raises(RuntimeError, match="EADDRINUSE"):
+            multihost.launch_local([sys.executable, "-c", code], 2,
+                                   str(tmp_path / "taken"), timeout=120)
+        assert len(chosen) == multihost.LAUNCH_ATTEMPTS

@@ -277,13 +277,15 @@ def test_iterative_predictor_on_cuda_launches_k3(cuda):
 
 # --- K2, the streamed Gram matvec, and the training path on the card ---
 
-@pytest.mark.parametrize("n,d", [(1, 3), (37, 3), (130, 4), (1000, 3),
-                                 (4097, 2), (5000, 5), (20000, 3)])
+@pytest.mark.parametrize("n,d", [(1, 3), (37, 2), (37, 3), (130, 4),
+                                 (257, 5), (1000, 3), (1000, 4), (4097, 2),
+                                 (4097, 3), (5000, 5), (20000, 3)])
 def test_matvec_kernel_matches_plain(cuda, n, d):
+    # d <= 3 takes the packed kernel, d = 4 and 5 the general path
     Xk, scal, V = _matmat_case(n, 1, d, cuda, seed=n + d)
     v = V[:, 0].contiguous()
     before = matvec.matvec_launches
-    y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v)
+    y = matvec.streamed_matvec(Xk, scal, BIAS, SN2, v, d)
     torch.cuda.synchronize()
     assert matvec.matvec_launches == before + 1
     assert y.dtype == torch.float32 and tuple(y.shape) == (n,)
@@ -308,13 +310,37 @@ def test_matvec_kernel_is_repeatable_and_matches_k3(cuda):
 
 
 def test_matvec_diagonal_is_exactly_s2(cuda):
+    # columns 0-7 of every group of 8 cover both classes of the ex2
+    # split (ops/matvec.py); 256 and 512 start the second and third slab;
+    # d = 3 takes the packed kernel, the padded width the general path
     n = 700
     Xk, scal, _ = _matmat_case(n, 1, 3, cuda, seed=4)
-    for i in (0, 255, 256, 511, 512, 699):
+    assert matvec.matvec_slabs(n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)[1] == 3
+    for d in (3, None):
+        for i in (*range(8), 255, 256, 259, 511, 512, 517, 699):
+            e = torch.zeros(n, device=cuda)
+            e[i] = 1.0
+            y = matvec.streamed_matvec(Xk, scal, 0.0, 0.0, e, d)
+            assert y[i].item() == scal.item(), (d, i)
+
+
+def test_matvec_far_pairs_are_finite_and_tiny(cuda):
+    # two clusters at metric distance >= 200: exp(-200) is far below
+    # float32's normal range; MUFU flushes it to 0, the polynomial
+    # returns its 2^-126 floor; both classes of the split are probed
+    n = 64
+    X = torch.zeros(n, 3, device=cuda)
+    X[:, 1] = torch.linspace(0.0, 1.0, n, device=cuda)
+    X[n // 2:, 0] = 250.0
+    Xk, scal = matvec.operator_arrays(X, SIGMA)
+    for j in range(n // 2, n // 2 + 8):
         e = torch.zeros(n, device=cuda)
-        e[i] = 1.0
-        y = matvec.streamed_matvec(Xk, scal, 0.0, 0.0, e)
-        assert y[i].item() == scal.item()
+        e[j] = 1.0
+        y = matvec.streamed_matvec(Xk, scal, 0.0, 0.0, e, 3)
+        assert bool(torch.isfinite(y).all()) and bool((y >= 0).all())
+        assert y[:n // 2].max().item() < 1e-30 * scal.item()
+        assert y[j].item() == scal.item()
 
 
 def test_matvec_wrapper_rejects_what_the_kernel_does_not_take(cuda):
