@@ -15,11 +15,21 @@ Operator modes (`choose_mode`): "chol" materializes A with K1 and
 factors it exactly; "gemm" holds A in float32 and runs CG/SLQ as GEMMs;
 "gemm_bf16" (opt-in only) holds K in bfloat16, its solves floored at
 BF16_CG_TOL_FLOOR; "stream" never builds A. Everything else runs in
-float32, as in the JAX package. The stages of an
-evaluation (pivoted Cholesky, whitened solve, SLQ, contraction,
-materialized factor) carry profiler ranges named
-"iterative.<function>", so a torch.profiler trace of the real call
-splits its device time by stage.
+float32, as in the JAX package.
+
+The stages of an evaluation carry torch.profiler ranges named
+"iterative.<function>" (recorded only while a profiler is active), so a
+trace of the real call splits its device time, and the card's idle
+time, by stage:
+  iterative._pivchol              the pivoted Cholesky
+  iterative.whitened_solve_info   the whitened CG solve, warm start
+                                  included, holding
+  iterative.precond_sqrt_pieces   eigh of L^T L and the Q build
+  iterative.slq_logdet_batched    SLQ
+  iterative._grad_contraction     the gradient's contraction
+  iterative._materialized_chol    the materialized factor ("chol")
+No range sits inside a per-step loop (the pivoted Cholesky's steps, CG
+iterations, Lanczos steps, contraction chunks).
 
 What differs from JAX, and why:
   * `lax.while_loop`, `fori_loop` and `scan` become Python loops. A CG
@@ -105,6 +115,7 @@ def pivoted_cholesky(Xm: torch.Tensor, sigma, bias, rank: int) -> torch.Tensor:
     return L
 
 
+@record_function("iterative.precond_sqrt_pieces")
 def precond_sqrt_pieces(L: torch.Tensor, sn2):
     """The pieces of P^(-1/2) and logdet P for P = L L^T + sn2 I.
     Returns (Q (n, k), inv_sqrt_eig (k,), logdet_P ()).

@@ -105,8 +105,12 @@ def make_iterative_value_and_grad(
     `.last_rel_residual`, `.cg_tol` (the tolerance its solves are held
     to, after gemm_bf16's floor), `.precond_rank` and `.prev_sols`, the
     last evaluation's solutions [alpha | A^-1 Z_trace] (n, 1 + probes;
-    None after a chol-mode one); each call is a profiler range,
-    "iterative_fit.value_and_grad". An evaluation whose solve failed is
+    None after a chol-mode one). Each call is a torch.profiler range,
+    "iterative_fit.value_and_grad", holding the engine's "iterative.*"
+    ranges (inference/iterative.py) and "iterative_fit.chain_rule" (the
+    surrogate's backward, the gradient's copy to the host and the reads
+    of the solve's stats); none sits inside a per-step loop, so an
+    evaluation opens at most 7. An evaluation whose solve failed is
     NaN (inference.iterative.nlml_and_grad_iterative); `optim.fit`
     reports the unconverged ones.
 
@@ -159,21 +163,23 @@ def make_iterative_value_and_grad(
             Z_logdet=Z_logdet, Z_trace=Z_trace,
             X_prev=value_and_grad.prev_sols if warm_start else None)
         value_and_grad.prev_sols = stats.sols
-        # the chain rule in one backward: Xm's map (angles, widths) plus
-        # the direct sigma / bias / sn2 terms
-        surrogate = (torch.sum(Xm * dXm) + ep["Sigma"] * ds
-                     + bp["Sigma"] * db + sn2 * dsn2)
-        if warped:
-            # NLML_w = NLML(g(y; w); sn2(w)) - sum log g'(y; w), and
-            # d(fit)/dw = alpha' dg/dw with alpha = A^-1 g(y) fixed (A
-            # does not depend on w); sn2's chain rides sn2 * dsn2 above
-            val = val - torch.sum(lgpy.detach())
-            surrogate = (surrogate + torch.dot(stats.alpha.detach(), gy)
-                         - torch.sum(lgpy))
-        (g,) = torch.autograd.grad(surrogate, flat)
-        value_and_grad.last_cg_iters = int(stats.cg_iters)
-        value_and_grad.last_rel_residual = float(stats.rel_residual)
-        return float(val), g.detach().cpu().numpy().astype(np.float64)
+        with record_function("iterative_fit.chain_rule"):
+            # the chain rule in one backward: Xm's map (angles, widths)
+            # plus the direct sigma / bias / sn2 terms
+            surrogate = (torch.sum(Xm * dXm) + ep["Sigma"] * ds
+                         + bp["Sigma"] * db + sn2 * dsn2)
+            if warped:
+                # NLML_w = NLML(g(y; w); sn2(w)) - sum log g'(y; w), and
+                # d(fit)/dw = alpha' dg/dw with alpha = A^-1 g(y) fixed
+                # (A does not depend on w); sn2's chain rides sn2 * dsn2
+                val = val - torch.sum(lgpy.detach())
+                surrogate = (surrogate
+                             + torch.dot(stats.alpha.detach(), gy)
+                             - torch.sum(lgpy))
+            (g,) = torch.autograd.grad(surrogate, flat)
+            value_and_grad.last_cg_iters = int(stats.cg_iters)
+            value_and_grad.last_rel_residual = float(stats.rel_residual)
+            return float(val), g.detach().cpu().numpy().astype(np.float64)
 
     value_and_grad.last_cg_iters = None
     value_and_grad.last_rel_residual = None

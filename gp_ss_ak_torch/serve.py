@@ -17,6 +17,14 @@ K(X, X) never exists; every solve is batched CG over the streamed Gram
 matmat (the CUDA kernel csrc/matmat.cu on a GPU, ops/matvec.py).
 
 Both servers take the plain and the warped Gaussian likelihood.
+
+A `Predictor` request carries torch.profiler ranges (recorded only
+while a profiler is active): "serve.request" around the call, and in
+it, for each batch, "serve.to_device" (the query's upload),
+"serve.posterior" (cross-Gram, GEMV, the L^-1 SGEMM, the variance
+reduce) and "serve.to_host" (mean and variance to the host). No range
+sits inside a per-step loop: a request opens 4, and 3 more for each
+further batch.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 from gp_ss_ak_torch.inference import gaussian
 from gp_ss_ak_torch.inference.iterative import (
@@ -84,32 +93,39 @@ class Predictor:
 
     def _predict(self, Xs: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         m = self.model
-        Xs_t = torch.as_tensor(Xs, dtype=self.dtype, device=self.device)
-        return gaussian.posterior_mean_var(
-            m.kernel, m.kernel_params, m.lik_hypers, self.X, self.post,
-            Xs_t, m.likelihood)
+        with record_function("serve.to_device"):
+            Xs_t = torch.as_tensor(Xs, dtype=self.dtype, device=self.device)
+        with record_function("serve.posterior"):
+            return gaussian.posterior_mean_var(
+                m.kernel, m.kernel_params, m.lik_hypers, self.X, self.post,
+                Xs_t, m.likelihood)
 
     def __call__(self, Xstar, batch_size: Optional[int] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        Xs = np.asarray(Xstar)
-        if batch_size is None or Xs.shape[0] <= batch_size:
-            mu, var = self._predict(Xs)
-            return mu.cpu().numpy(), var.cpu().numpy()
-        mus, vars_ = [], []
-        # fixed-size batches (the tail padded by repeating its last row),
-        # as the JAX server does, so every batch has one shape
-        m = Xs.shape[0]
-        for start in range(0, m, batch_size):
-            chunk = Xs[start : start + batch_size]
-            pad = batch_size - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate([chunk, np.repeat(
-                    chunk[-1:], pad, axis=0)])
-            mu, var = self._predict(chunk)
-            take = batch_size - pad
-            mus.append(mu[:take].cpu().numpy())
-            vars_.append(var[:take].cpu().numpy())
-        return np.concatenate(mus), np.concatenate(vars_)
+        # a range of its own each call (a decorator's one instance would
+        # be shared by concurrent requests)
+        with record_function("serve.request"):
+            Xs = np.asarray(Xstar)
+            if batch_size is None or Xs.shape[0] <= batch_size:
+                mu, var = self._predict(Xs)
+                with record_function("serve.to_host"):
+                    return mu.cpu().numpy(), var.cpu().numpy()
+            mus, vars_ = [], []
+            # fixed-size batches (the tail padded by repeating its last
+            # row), as the JAX server does, so every batch has one shape
+            m = Xs.shape[0]
+            for start in range(0, m, batch_size):
+                chunk = Xs[start : start + batch_size]
+                pad = batch_size - chunk.shape[0]
+                if pad:
+                    chunk = np.concatenate([chunk, np.repeat(
+                        chunk[-1:], pad, axis=0)])
+                mu, var = self._predict(chunk)
+                take = batch_size - pad
+                with record_function("serve.to_host"):
+                    mus.append(mu[:take].cpu().numpy())
+                    vars_.append(var[:take].cpu().numpy())
+            return np.concatenate(mus), np.concatenate(vars_)
 
 
 class IterativePredictor:

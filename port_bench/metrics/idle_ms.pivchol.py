@@ -1,0 +1,9 @@
+"""idle_ms.pivchol: the card's idle time charged to the profiler range
+iterative._pivchol (the pivoted Cholesky's host steps), innermost,
+per evaluation of the traced window (port_bench/stages.py)."""
+
+from port_bench import stages
+
+
+def read(run):
+    return stages.idle_ms_per_item(run, "iterative._pivchol")

@@ -284,3 +284,44 @@ def test_evaluation_is_split_by_profiler_ranges():
     assert {"iterative_fit.value_and_grad", "iterative._pivchol",
             "iterative.whitened_solve_info",
             "iterative.slq_logdet_batched"} <= names
+
+
+@pytest.fixture(scope="module")
+def profiled_evaluations():
+    """A cold and a warm evaluation of the segmented evaluator, each
+    under its own CPU profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X, y = case(n=96, seed=7)
+    vg = t_seg(model(), X, y, **OPTS)
+    profs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for x in (start(), start() * 1.05):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                vg(x)
+            profs.append(prof)
+    return profs
+
+
+PROGRAM_RANGES = ("iterative.", "iterative_fit.")
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("child,parent", [
+    ("iterative.precond_sqrt_pieces", "iterative.whitened_solve_info"),
+    ("iterative_fit.chain_rule", "iterative_fit.value_and_grad"),
+])
+def test_evaluation_stage_ranges_nest(profiled_evaluations, warm, child,
+                                      parent):
+    """The whitening's pieces sit inside the whitened solve and the chain
+    rule inside the evaluation, on the calling thread; no range sits in
+    a per-step loop, so an evaluation opens 7 program ranges."""
+    events = profiled_evaluations[warm].events()
+    (c,) = [e for e in events if e.name == child]
+    (p,) = [e for e in events if e.name == parent]
+    assert c.thread == p.thread
+    assert p.time_range.start <= c.time_range.start
+    assert c.time_range.end <= p.time_range.end
+    assert len([e for e in events
+                if e.name.startswith(PROGRAM_RANGES)]) == 7

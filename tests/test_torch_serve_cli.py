@@ -76,6 +76,41 @@ def test_predictor_without_inverse_matches_with():
     np.testing.assert_allclose(var_f, var_s, rtol=1e-8, atol=1e-11)
 
 
+def _ranges(prof, prefix):
+    return [e for e in prof.events() if e.name.startswith(prefix)]
+
+
+def _inside(child, parent):
+    return (child.thread == parent.thread
+            and parent.time_range.start <= child.time_range.start
+            and child.time_range.end <= parent.time_range.end)
+
+
+@pytest.mark.parametrize("batch_size,batches", [(None, 1), (8, 3)],
+                         ids=["one-batch", "three-batches"])
+@pytest.mark.parametrize("stage", ["serve.to_device", "serve.posterior",
+                                   "serve.to_host"])
+def test_predictor_request_holds_its_stage_ranges(stage, batch_size,
+                                                  batches):
+    """A request is one range, "serve.request", holding the upload, the
+    posterior and the copy to the host once for each batch: 4 ranges
+    for one batch, 3 more for each further batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, mt = models()
+    rng = np.random.default_rng(6)
+    X = rng.uniform(-1, 1, size=(40, 3))
+    st = tserve.Predictor(mt, X, np.sin(X.sum(1)))
+    Xq = rng.uniform(-1, 1, size=(20, 3))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        st(Xq, batch_size=batch_size)
+    (req,) = _ranges(prof, "serve.request")
+    got = _ranges(prof, stage)
+    assert len(got) == batches
+    assert all(_inside(e, req) for e in got)
+    assert len(_ranges(prof, "serve.")) == 4 + 3 * (batches - 1)
+
+
 @pytest.fixture()
 def golden_case(tmp_path):
     for name in ("model", "model_Statistics.txt", "train.txt", "test.txt"):
