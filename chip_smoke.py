@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py [--seed N]      (from the root of the repository)
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
     python3 chip_smoke.py --only k2       (phases 1, 2, 5 and 14: K2 alone)
+    python3 chip_smoke.py --only k4       (phases 1, 2 and 5b: K4 alone)
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
@@ -15,7 +16,8 @@ NVIDIA GPU.
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
   2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
-     (csrc/matvec.cu) and K3 (csrc/matmat.cu) and the ex2 probe
+     (csrc/matvec.cu), K3 (csrc/matmat.cu), K4 (csrc/contraction.cu)
+     and the ex2 probe
      (csrc/ex2_probe.cu) into one library, one nvcc per source; ptxas's
      register report (no spills in K3's wide tile, K2 or the probe), the
      HMMA count of K3's SASS (cuobjdump), K2's opcode histograms (no FRND
@@ -39,6 +41,16 @@ Phases, each of which raises on failure (nothing is caught):
      MUFU-only term, the SASS model, K3 at B = 1 and the plain version;
      at N = 100000 and 150000 also the gate and K2's time under its slab
      plan beside 16 slabs and beside one wave of slabs, floored;
+  5b. K4 (csrc/contraction.cu, the gradient's contraction): its
+     instances' spills (none at d <= 3), opcode histograms and issue
+     slots per Gram entry from the SASS; against its plain version in
+     float64 at ragged sizes, d = 2 and 5 and rank 9, 17 and 33, and at
+     N = 100000 (equal bits over two launches); on the ore body's mapped
+     points at N = 100000, rank 9, the four gradients of
+     `_grad_contraction` (one K4 launch) and of the autograd version it
+     replaced against float64; the kernel's time beside its bound and
+     the SASS model's floor, `_grad_contraction`'s, the plain version's
+     and the autograd version's; the kernel at rank 17;
   6. the golden fixture (tests/golden) through K1 in float64;
   7. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
      float32 on a synthetic ore body, N_train = 16384, N_test = 4096;
@@ -237,8 +249,9 @@ MODE_VAL_REL, MODE_VAL_ABS = 1e-4, 0.05
 MODE_GRAD_REL, MODE_GRAD_ABS = 1e-3, 1e-2
 MODE_CG_TOL = 1e-6              # that test's CG tolerance
 # the Xm gradient, stream vs gemm, relative to its largest entry: 1.6e-3
-# on an H100 at cg_tol 1e-4 and at 1e-6 alike (float32 contraction
-# round-off, not the solves), so the limit sits ~6x above it
+# on an H100 at cg_tol 1e-4 and at 1e-6 alike, with the autograd
+# contraction and with K4 (whose own error is ~4e-7 of float64) alike:
+# the two modes' float32 operators, so the limit sits ~6x above it
 MODE_XM_REL = 1e-2
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # HBM bytes/s, FP32 outside the tensor cores and dense TF32, flop/s; the
@@ -404,11 +417,20 @@ EX_FULL_ITERS, EX_DIST_ITERS, EX_RING_ITERS = 5, 3, 2
 EX_FULL_NUTS, EX_BAYES_NUTS = (5, 5), (8, 8)
 # the acceptance the Bayes workflow's NUTS must show, mean over chains
 EX_ACCEPT = (0.3, 1.0)
-# the live (chunk, N) float32 blocks of the gradient contraction with
-# their saved tensors and cotangents, counted from
-# inference/iterative._grad_contraction (d2, the clamp, the diagonal
-# mask, r, exp(-r), the kernel, its bias and noise terms, their grads)
-SEG_CONTRACTION_BLOCKS = 16
+# what the segmented path holds at once (segmented_peak_bound): the
+# (n, rank) float32 blocks (the pivoted Cholesky's L, and the
+# preconditioner's Q twice while precond_sqrt_pieces masks it); the
+# columns of n floats beside them (the probes, 8 + 32; CG's and SLQ's
+# blocks and the warm start, at most 33 wide each; K4's records, 3 + 2 *
+# 9, and its [t, g] partial sums, 4 a slice); the training-set mean's
+# (4096, 4096) cross-Gram blocks with their temporaries
+SEG_RANK_BLOCKS, SEG_COLUMNS, SEG_MEAN_BLOCKS = 3, 256, 4
+# K4, the gradient's contraction: the fit's N and ranks (8 and 16 probes,
+# plus alpha), and its gate: t and g against the plain version in float64
+# on the same inputs, within TOL_K4 of each output's largest entry
+N_K4 = 100000
+K4_RANKS = (9, 17)
+TOL_K4 = 1e-5
 
 def _check(ok: bool, what: str) -> None:
     if not ok:
@@ -720,10 +742,7 @@ def phase_build():
     for name, st, ld in spills:
         _check(st == ld == "0", f"K3 wide tile {name} spills: {st} bytes "
                f"stored, {ld} loaded")
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
-        os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _build.load()._name],
-                          capture_output=True, text=True, check=True).stdout
+    sass = _sass()
     hmma = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
@@ -1260,6 +1279,253 @@ def phase_k2(device, seed: int, sass):
     return report
 
 
+# ---------------------------------------------------------------------------
+# K4, the gradient's contraction (csrc/contraction.cu)
+# ---------------------------------------------------------------------------
+
+def contraction_work(n: int, d: int, k: int):
+    """K4's work for the n*n ordered pairs at rank k (columns of U and V):
+    the records (points, V, cU) read once and [t, g] written once;
+    3d + 2k + 6 FP32 instructions an entry (the distance's d differences
+    and d multiply-adds, g's d multiply-adds; the guard's compare and
+    select, r, W(p, j) and W(j, p) at k FFMA each, t's FFMA, the factor's
+    two multiplies), priced at two flops each as `sfu_fma_ms` counts
+    them; an rsqrt and an ex2 an entry on the SFU; no product on the
+    tensor cores."""
+    return 4.0 * n * (2 * d + 2 * k + 1), \
+        2.0 * n * n * (3 * d + 2 * k + 6), 2.0 * n * n, 0.0
+
+
+def _sass() -> str:
+    """cuobjdump -sass of the loaded kernel library."""
+    from gp_ss_ak_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", _build.load()._name],
+                          capture_output=True, text=True, check=True).stdout
+
+
+_K4_NAME = re.compile(r"contraction_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def k4_sass_report():
+    """K4's instances in ptxas's report (registers, spills: none in the
+    d <= 3 instances) and their SASS: each opcode histogram (no
+    SLOW_OPCODES) and the issue slots per Gram entry of each inner loop
+    (an entry per MUFU.RSQ). Returns {(D, MP): slots by kind}."""
+    from gp_ss_ak_torch.ops import _build
+
+    log = _build.build_info.get("log", "")
+    for name, st, ld in re.findall(
+            r"Function properties for (\S*contraction_kernel\S*)\s+\d+ "
+            r"bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+            r"spill loads", log):
+        m = _K4_NAME.search(name)
+        print(f"build: K4 <D={m.group(1)}, MP={m.group(2)}, R={m.group(3)}, "
+              f"MINB={m.group(4)}> spills {st} bytes stored, {ld} loaded")
+        _check(m.group(1) != "3" or st == ld == "0",
+               f"K4 instance {m.groups()} spills")
+    out = {}
+    for name, insns in sass_functions(_sass()).items():
+        m = _K4_NAME.search(name)
+        if m is None:
+            continue
+        hist = opcode_histogram(insns)
+        slow = [op for op in hist if op.split(".")[0] in SLOW_OPCODES]
+        _check(not slow, f"{name}: {slow} in its SASS")
+        loop = innermost_loop(insns, "MUFU")
+        _check(loop is not None, f"K4 {m.groups()}: no inner loop found")
+        lhist = opcode_histogram(loop)
+        entries = lhist.get("MUFU.RSQ", 0)
+        _check(entries > 0 and lhist.get("MUFU.EX2", 0) == entries,
+               f"K4 {m.groups()}: loop opcodes {lhist}")
+        c = issue_classes(lhist, entries)
+        out[(int(m.group(1)), int(m.group(2)))] = c
+        print(f"build: K4 <D={m.group(1)}, MP={m.group(2)}, R={m.group(3)}>"
+              f" inner loop {len(loop)} instructions, {entries} Gram "
+              f"entries; issue slots per entry: {_fmt_classes(c)}; loop "
+              f"opcodes {lhist}")
+    _check((3, 9) in out, f"K4's d <= 3, rank 9 instance not found: {out}")
+    return out
+
+
+def _k4_inputs(device, g, X, k: int):
+    """c * U and V of a rank-k contraction on points X: U holds k - 1
+    probe solves (normal, scale 3) and alpha, V the probes (+-1) and
+    alpha; with (alpha, ws, zs) as `_grad_contraction` takes them."""
+    import torch
+
+    n = X.shape[0]
+    alpha = torch.randn(n, generator=g, device=device)
+    ws = 3.0 * torch.randn(k - 1, n, generator=g, device=device)
+    zs = torch.randint(0, 2, (k - 1, n), generator=g, device=device) * 2.0 \
+        - 1.0
+    coef = torch.tensor([1.0 / (k - 1)] * (k - 1) + [-1.0], device=device)
+    cU = (torch.cat([ws.T, alpha[:, None]], 1) * coef).contiguous()
+    V = torch.cat([zs.T, alpha[:, None]], 1).contiguous()
+    return cU, V, (alpha, ws, zs)
+
+
+def autograd_contraction(it_gp, alpha, ws, zs, chunk: int = 1024):
+    """The gradient's contraction as the port computed it before K4: a
+    (chunk, N) Gram block at a time under torch.autograd, in float32 (the
+    yardstick of K4's error and time)."""
+    import torch
+
+    from gp_ss_ak_torch.kernels.distance import (gram_sqdist,
+                                                 highest_precision)
+
+    f32 = torch.float32
+    n = alpha.shape[0]
+    m = ws.shape[0]
+    U = torch.cat([ws.T, alpha[:, None]], 1).to(f32)
+    V = torch.cat([zs.T, alpha[:, None]], 1).to(f32)
+    coef = torch.cat([torch.full((m,), 1.0 / m, dtype=f32, device=U.device),
+                      torch.full((1,), -1.0, dtype=f32, device=U.device)])
+    leaves = [t.detach().to(f32).requires_grad_()
+              for t in (it_gp.sigma, it_gp.bias, it_gp.sn2, it_gp.Xm)]
+    sigma, bias, sn2, Xm = leaves
+    cols = torch.arange(n, device=Xm.device)
+    total = [torch.zeros_like(t) for t in leaves]
+    with torch.enable_grad(), highest_precision():
+        for s in range(0, n, chunk):
+            rows = Xm[s:s + chunk]
+            c = rows.shape[0]
+            d2 = gram_sqdist(rows, Xm)
+            on_diag = (s + torch.arange(c, device=Xm.device))[:, None] \
+                == cols[None, :]
+            r = torch.sqrt(torch.where(on_diag, 1.0,
+                                       torch.clamp_min(d2, 1e-30)))
+            k = sigma * sigma * torch.where(on_diag, 1.0, torch.exp(-r))
+            k = k + bias + sn2 * on_diag
+            per_col = torch.sum(U[s:s + c] * (k @ V), dim=0)
+            val = 0.5 * torch.dot(per_col, coef)
+            for acc, gr in zip(total, torch.autograd.grad(val, leaves)):
+                acc += gr
+    return tuple(total)
+
+
+def _grad_errors(got, ref):
+    """|got - ref| / max |ref| of each of the four gradients."""
+    return [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip(got, ref)]
+
+
+def phase_k4(device, seed: int):
+    """K4 against its plain version in float64 on the same inputs (t and
+    g within TOL_K4 of their largest entries; equal bits over two
+    launches) at ragged sizes, the d = 2 padding, the general instance
+    (d = 5) and N_K4 at K4_RANKS; then on the ore body mapped by the
+    golden model at N_K4, rank 9: the four gradients of
+    `_grad_contraction` (one K4 launch) and of the autograd version it
+    replaced, each against the closed form in float64; and CUDA event
+    times of the kernel, of `_grad_contraction`, of the plain version in
+    float32 and of the autograd version, beside the bound
+    (`contraction_work`) and the SASS model's floor. Returns the
+    report."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import contraction
+
+    slots = k4_sass_report()
+    g = torch.Generator(device=device).manual_seed(seed + 4)
+    report = {"max_abs_err": 0.0}
+    for n, d, k in ((4097, 3, 9), (4097, 2, 17), (5000, 5, 9),
+                    (4097, 3, 33), *((N_K4, 3, k) for k in K4_RANKS)):
+        X = 3.0 * torch.rand(n, d, generator=g, device=device) - 1.5
+        X[7] = X[3]
+        cU, V, _ = _k4_inputs(device, g, X, k)
+        t, gr = contraction.expans_contraction(X, cU, V)
+        t2, gr2 = contraction.expans_contraction(X, cU, V)
+        t64, g64 = contraction.expans_contraction_plain(
+            X.double(), cU.double(), V.double())
+        errs = [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in ((t, t64), (gr, g64))]
+        same = torch.equal(t, t2) and torch.equal(gr, gr2)
+        print(f"K4 n={n} d={d} rank {k}: max |kernel-plain64| / max "
+              f"|plain64|: t {errs[0]:.3e}, g {errs[1]:.3e} (limit "
+              f"{TOL_K4}); two launches "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        _check(max(errs) <= TOL_K4, f"K4 disagrees at n={n} d={d} k={k}")
+        _check(same, f"K4 launches differ at n={n} d={d} k={k}")
+        report["max_abs_err"] = max(report["max_abs_err"], max(errs))
+        del X, cU, V, t, t2, gr, gr2, t64, g64
+    torch.cuda.empty_cache()
+
+    # the fit's own points: the ore body, standardized, mapped
+    Xs, _, _ = _mesh_problem(seed, N_K4)
+    it_gp = _iterative_gp(_golden_model(device, torch.float32), Xs, device)
+    k = K4_RANKS[0]
+    cU, V, (alpha, ws, zs) = _k4_inputs(device, g, it_gp.Xm, k)
+    before = contraction.launches
+    got = ti._grad_contraction(it_gp, alpha, ws, zs, 1024)
+    _check(contraction.launches == before + 1,
+           f"_grad_contraction made {contraction.launches - before} K4 "
+           f"launches")
+    old = autograd_contraction(it_gp, alpha, ws, zs)
+    f64 = torch.float64
+    t64, g64 = contraction.expans_contraction_plain(
+        it_gp.Xm.double(), cU.double(), V.double())
+    s = it_gp.sigma.double()
+    ref = (s * t64.sum(), 0.5 * torch.dot(cU.double().sum(0),
+                                          V.double().sum(0)),
+           0.5 * torch.sum(cU.double() * V.double()), -0.5 * s * s * g64)
+    e_k4, e_old = _grad_errors(got, ref), _grad_errors(old, ref)
+    names = ("sigma", "bias", "sn2", "Xm")
+    print(f"K4 N={N_K4} rank {k}, the ore body's mapped points: gradients "
+          f"against float64, max |err| / max |ref| (K4 / autograd): "
+          + ", ".join(f"{nm} {a:.3e} / {b:.3e}"
+                      for nm, a, b in zip(names, e_k4, e_old)))
+    worse = [nm for nm, a, b in zip(names, e_k4, e_old) if a > b]
+    _check(not worse, f"K4's error exceeds the autograd version's on "
+           f"{worse}")
+    del t64, g64
+    torch.cuda.empty_cache()
+
+    rec, plan = contraction.records(it_gp.Xm, cU, V)
+    ms = time_ms(lambda: contraction.run_kernel(rec, plan), warmup=3,
+                 iters=20)
+    call_ms = time_ms(lambda: ti._grad_contraction(it_gp, alpha, ws, zs,
+                                                    1024), warmup=2, iters=10)
+    X32 = it_gp.Xm.contiguous()
+    plain_ms = time_ms(lambda: contraction.expans_contraction_plain(
+        X32, cU, V), warmup=1, iters=2)
+    old_ms = time_ms(lambda: autograd_contraction(it_gp, alpha, ws, zs),
+                     warmup=1, iters=2)
+    work = contraction_work(N_K4, 3, k)
+    b_ms, b_by = bound(work, **card_rates())
+    rates = card_rates()
+    c = slots[(3, 9)]
+    floor = N_K4 * N_K4 * max(c["MUFU"] / SFU_PER_SM_CLOCK,
+                              c["total"] / 128) / (rates["sms"]
+                                                   * rates["clock_hz"]) * 1e3
+    rows_pad, width, slices, _, _ = plan
+    print(f"K4 time N={N_K4} d=3 rank {k} f32: kernel {ms:.4f} ms "
+          f"({N_K4 * N_K4 / (ms * 1e-3) / 1e9:.1f} Gpairs/s; {slices} "
+          f"column slices of {width}, {rows_pad} rows), bound {b_ms:.4f} ms "
+          f"(set by {b_by}: {3 * 3 + 2 * k + 6} FP32 instructions an entry; "
+          f"kernel at {b_ms / ms:.3f} of it), the SASS model's floor "
+          f"{floor:.4f} ms ({c['total']:.2f} issue slots an entry; kernel "
+          f"at {floor / ms:.3f} of it); _grad_contraction {call_ms:.4f} ms, "
+          f"plain f32 {plain_ms:.4f} ms, the autograd version "
+          f"{old_ms:.4f} ms")
+    report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  call_ms=call_ms, autograd_ms=old_ms)
+    for k2 in K4_RANKS[1:]:
+        cU, V, _ = _k4_inputs(device, g, it_gp.Xm, k2)
+        rec, plan = contraction.records(it_gp.Xm, cU, V)
+        ms2 = time_ms(lambda: contraction.run_kernel(rec, plan), warmup=2,
+                      iters=10)
+        b2, _ = bound(contraction_work(N_K4, 3, k2), **card_rates())
+        print(f"K4 time N={N_K4} d=3 rank {k2} f32: kernel {ms2:.4f} ms, "
+              f"bound {b2:.4f} ms (kernel at {b2 / ms2:.3f} of it)")
+    del rec, cU, V
+    torch.cuda.empty_cache()
+    return report
+
+
 def phase_golden(device):
     import torch
 
@@ -1691,7 +1957,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     import torch
 
     from gp_ss_ak_torch.inference import iterative as ti
-    from gp_ss_ak_torch.ops import matvec
+    from gp_ss_ak_torch.ops import contraction, matvec
     from gp_ss_ak_torch.optim import fit
 
     from gp_ss_ak_torch.optim import api
@@ -1703,7 +1969,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
           f"{ti._mode_thresholds(None)}")
     torch.cuda.reset_peak_memory_stats()
     timing, log = {}, []
-    before = matvec.launches
+    before, before4 = matvec.launches, contraction.launches
     make = api.make_iterative_value_and_grad
     api.make_iterative_value_and_grad = _recording(make, log)
     try:
@@ -1719,6 +1985,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     seen = [w for w in seen
             if issubclass(w.category, ti.UnconvergedSolveWarning)]
     k3 = matvec.launches - before
+    k4 = contraction.launches - before4
     print(f"iterative fit N={Xtrs.shape[0]} (stream): -logL "
           f"{res.trace[0]:.6f} -> {res.fun:.6f}, {res.n_iters} iterations, "
           f"{res.n_evals} evaluations, stop {res.stop_reason}; per "
@@ -1727,7 +1994,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
           f"{timing['unconverged_evals']} of {res.n_evals}, largest rel "
           f"residual {timing['max_rel_residual']:.3e}; warnings "
           f"{[str(w.message) for w in seen]}; wall {wall:.3f} s; K3 "
-          f"launches {k3}; peak device memory "
+          f"launches {k3}, K4 launches {k4}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     _check(len(seen) == (1 if timing["unconverged_evals"] else 0),
            f"iterative fit: {len(seen)} warnings for "
@@ -1737,6 +2004,8 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     _check(bool(np.all(np.isfinite(fitted.pack().cpu().numpy()))),
            "iterative fit: non-finite hyperparameters")
     _check(k3 > 0, "iterative fit launched no K3")
+    _check(len(log) == res.n_evals, f"{len(log)} evaluations recorded, "
+           f"the fit says {res.n_evals}")
     return model, Xtrs, ytrs, k3
 
 
@@ -1791,6 +2060,7 @@ def phase_train_default(itrain: str, workdir: str):
 
     from gp_ss_ak_torch import cli
     from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.optim import api
 
     mode = ti.choose_mode(N_ITER_TRAIN, "auto", torch.device("cuda", 0))
     model_path = os.path.join(workdir, "trained_default")
@@ -1801,9 +2071,16 @@ def phase_train_default(itrain: str, workdir: str):
               "iterative._materialized_chol": "A + potrf",
               "iterative._grad_contraction": "contraction",
               "cmd_train.predict": "training-set predict"}
-    with contextlib.redirect_stdout(out):
-        rc, wall, split, total, top = profile_split(lambda: cli.main(
-            ["-v", "1", "train", "-#", "1", itrain, model_path]), labels)
+    log = []
+    make = api.make_iterative_value_and_grad
+    api.make_iterative_value_and_grad = _recording(make, log)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc, wall, split, total, top = profile_split(lambda: cli.main(
+                ["-v", "1", "train", "-#", "1", itrain, model_path]),
+                labels)
+    finally:
+        api.make_iterative_value_and_grad = make
     peak = torch.cuda.max_memory_allocated() / 2**30
     text = out.getvalue()
     print("cli train (default engine):", " | ".join(
@@ -1838,6 +2115,8 @@ def phase_train_default(itrain: str, workdir: str):
            f"default train route: -logL {first} -> {last}")
     _check(np.isfinite(mse) and mse < MSE_MAX * var_y,
            f"training MSE {mse} not below {MSE_MAX} * var(y)")
+    _check(len(log) == evals, f"{len(log)} evaluations recorded, the CLI "
+           f"says {evals}")
     return evals, mode
 
 
@@ -3306,7 +3585,9 @@ def run_warped_iterative(device, seed: int, zero, counts, wmodel: str,
 
 def run_train_default(itrain: str, zero, counts):
     """Counted: the default train route at N_ITER_TRAIN (phase 13).
-    Returns its (K1, K3) launches."""
+    Returns its (K1, K3, K4) launches."""
+    from gp_ss_ak_torch.ops import contraction
+
     zero()
     n_evals, mode = phase_train_default(itrain, os.path.dirname(itrain))
     if mode == "chol":
@@ -3319,7 +3600,8 @@ def run_train_default(itrain: str, zero, counts):
     else:
         _check(counts()[2] > 0, f"default train route ({mode} mode) "
                f"launched no K3: (K1, K2, K3) = {counts()}")
-    return counts()[0], counts()[2]
+    _check(contraction.launches > 0, "default train route launched no K4")
+    return counts()[0], counts()[2], contraction.launches
 
 
 # ---------------------------------------------------------------------------
@@ -3906,17 +4188,18 @@ def run_parallel(device, seed: int, counts, dense_case, icase):
 # the segmented evaluator (optim/segmented.py): phases 31-34
 # ---------------------------------------------------------------------------
 
-def segmented_peak_bound(n: int, rank: int, chunk: int = 1024) -> float:
+def segmented_peak_bound(n: int, rank: int, chunk: int = 4096) -> float:
     """Bytes a segmented stream fit and its matrix-free training-set mean
-    may hold on the device at n points, from the code: the pivoted
-    Cholesky's L and the preconditioner's Q beside it (n x rank each,
-    float32); the gradient contraction's (chunk, n) float32 blocks, at
-    most SEG_CONTRACTION_BLOCKS of them live with their saved tensors
-    and cotangents; 1 GiB for everything of O(n (B + d)) and the
-    allocator's rounding. The server's setup (L and Q again) and its
-    mean (a (4096, n) cross-Gram chunk) fit inside the same sum."""
-    return 4.0 * (2 * n * rank + SEG_CONTRACTION_BLOCKS * chunk * n) \
-        + 2.0 ** 30
+    may hold on the device at n points, from the code, all float32:
+    SEG_RANK_BLOCKS (n, rank) blocks, SEG_COLUMNS columns of n, and
+    SEG_MEAN_BLOCKS of the mean's (chunk, chunk) cross-Gram blocks (a
+    chunk of training rows against a batch of as many queries), plus
+    128 MiB for the rest (d-wide points, scalars) and the allocator's
+    rounding. The server's setup (L and Q again) fits inside the same
+    sum. A (1024, n) Gram block, as the autograd contraction held ~16
+    of, is 0.38 GiB at n = 100000: two of them do not fit."""
+    return 4.0 * (SEG_RANK_BLOCKS * n * rank + SEG_COLUMNS * n
+                  + SEG_MEAN_BLOCKS * chunk * chunk) + 2.0 ** 27
 
 
 def _seg_case(device, seed: int):
@@ -4032,17 +4315,27 @@ class _Recorded:
     """A matrix-free value_and_grad that appends (sn2, CG iterations,
     rel residual, rank, host seconds) for every evaluation to `log`; its
     other attributes (cg_tol, last_rel_residual, ...) read through, so
-    optim.fit judges its solves as it judges the closure's."""
+    optim.fit judges its solves as it judges the closure's. Gate: each
+    evaluation launches K4 once for its gradient, and not at all after a
+    failed solve (which returns without one)."""
 
     def __init__(self, vg, log):
         self.vg, self.log = vg, log
 
     def __call__(self, x):
+        from gp_ss_ak_torch.inference.iterative import solve_state
+        from gp_ss_ak_torch.ops import contraction
+
+        before = contraction.launches
         t0 = time.perf_counter()
         out = self.vg(x)
-        self.log.append((float(x[-1]), self.vg.last_cg_iters,
-                         self.vg.last_rel_residual, self.vg.precond_rank,
-                         time.perf_counter() - t0))
+        rel = self.vg.last_rel_residual
+        self.log.append((float(x[-1]), self.vg.last_cg_iters, rel,
+                         self.vg.precond_rank, time.perf_counter() - t0))
+        k4 = contraction.launches - before
+        want = 0 if solve_state(rel, self.vg.cg_tol) == "failed" else 1
+        _check(k4 == want, f"an evaluation (rel residual {rel:.3e}) made "
+               f"{k4} K4 launches, not {want}")
         return out
 
     def __getattr__(self, name):
@@ -4174,8 +4467,11 @@ def phase_seg_k3(device, seed: int):
 def run_segmented(device, seed: int, zero, counts):
     """Counted: phases 31-33 at N_SEG (K3 alone: no K1 or K2 in the
     fits; the server's mean launches K1); then phase 34 outside the
-    count. Returns (the counted K1 and K3 launches, phase 34's report)."""
+    count. Returns (the counted K1, K3 and K4 launches, phase 34's
+    report)."""
     import torch
+
+    from gp_ss_ak_torch.ops import contraction
 
     t0 = time.perf_counter()
     case, model, Xtrs, ytrs = _seg_case(device, seed)
@@ -4186,15 +4482,20 @@ def run_segmented(device, seed: int, zero, counts):
     torch.cuda.empty_cache()
     _check(counts()[:2] == (0, 0), f"segmented evaluations: (K1, K2, K3) "
            f"= {counts()}")
+    # one K4 launch a gradient: phase 31's fused, cold and profiled cold
+    # evaluations, phase 32's cold, warm and warm
+    _check(contraction.launches == 6, f"segmented evaluations: "
+           f"{contraction.launches} K4 launches for 6 gradients")
     phase_seg_train(device, case, os.path.dirname(case[0]))
     k1_l, _, k3_l = counts()
-    print(f"segmented path: (K1, K2, K3) launches {counts()}")
+    k4_l = contraction.launches
+    print(f"segmented path: (K1, K2, K3) launches {counts()}, K4 {k4_l}")
     _check(k3_l > 0 and k1_l > 0, f"segmented path: (K1, K2, K3) = "
            f"{counts()}")
     torch.cuda.empty_cache()
     report = phase_seg_k3(device, seed)
     print(f"segmented phases done in {time.perf_counter() - t0:.1f} s")
-    return k1_l, k3_l, report
+    return k1_l, k3_l, k4_l, report
 
 
 
@@ -4314,11 +4615,11 @@ def run_examples(zero, counts_k1):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3", "k2", "warped", "batched",
-                                       "sparse", "parallel", "segmented",
-                                       "examples"),
+    ap.add_argument("--only", choices=("k3", "k2", "k4", "warped",
+                                       "batched", "sparse", "parallel",
+                                       "segmented", "examples"),
                     help="k3: phases 1, 2 and 4; k2: phases 1, 2, 5 and "
-                         "14; warped: phases 1, 2, 9b, "
+                         "14; k4: phases 1, 2 and 5b; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
                          "sparse: phases 1, 2 and 19-24; parallel: phases "
                          "1, 2 and 25-30; segmented: phases 1, 2 and "
@@ -4336,7 +4637,7 @@ def main(argv=None) -> int:
         return 1
     if args.mesh_io is not None:
         return mesh_rank_main(args)
-    from gp_ss_ak_torch.ops import matvec, pairwise
+    from gp_ss_ak_torch.ops import contraction, matvec, pairwise
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -4350,6 +4651,7 @@ def main(argv=None) -> int:
     def zero():
         pairwise.launches = pairwise.batched_launches = 0
         matvec.launches = matvec.matvec_launches = 0
+        contraction.launches = 0
 
     def counts():
         return (pairwise.launches + pairwise.batched_launches,
@@ -4364,6 +4666,11 @@ def main(argv=None) -> int:
         k1 = counts()[0]
         zero()
         return k1
+
+    if args.only == "k4":
+        phase_k4(device, args.seed)
+        print(f"K4 phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     if args.only == "k2":
         phase_k2(device, args.seed, sass)
@@ -4426,6 +4733,7 @@ def main(argv=None) -> int:
     k1 = phase_k1(device, args.seed)
     k3 = phase_k3(device, args.seed)
     k2 = phase_k2(device, args.seed, sass)
+    k4 = phase_k4(device, args.seed)
     phase_golden(device)
     train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
@@ -4491,20 +4799,25 @@ def main(argv=None) -> int:
     k1_launches += k1_w
     k3_launches += k3_w
 
-    # counted run 4, matrix-free training (stream mode)
+    # counted run 4, matrix-free training (stream mode); from here K4's
+    # launches are added up over the runs that gate one a gradient
+    # (_Recorded): 4, 5 and 17-19
     zero()
     start, Xfit, yfit, _ = phase_iter_fit(device, itrain, itest, imodel)
     _check(matvec.launches > 0 and matvec.matvec_launches == 0,
            f"iterative fit: (K1, K2, K3) = {counts()}")
+    _check(contraction.launches > 0, "iterative fit launched no K4")
     k1_launches += pairwise.launches
     k3_launches += matvec.launches
+    k4_launches = contraction.launches
     phase_iter_eval_split(device, args.seed, start, Xfit, yfit)
 
     # counted run 5, the default train route past DENSE_MAX_N: the CLI
     # with --engine auto, then its training-set predict
-    k1_d, k3_d = run_train_default(itrain, zero, counts)
+    k1_d, k3_d, k4_d = run_train_default(itrain, zero, counts)
     k1_launches += k1_d
     k3_launches += k3_d
+    k4_launches += k4_d
     torch.cuda.empty_cache()
 
     # counted run 6, the K2 path: nlml_iterative without a preconditioner
@@ -4540,9 +4853,11 @@ def main(argv=None) -> int:
 
     # counted runs 17-19, the segmented evaluator at N_SEG: against the
     # fused one, warm against cold, `train --segmented` and its holdout
-    k1_g, k3_g, k3_seg = run_segmented(device, args.seed, zero, counts)
+    k1_g, k3_g, k4_g, k3_seg = run_segmented(device, args.seed, zero,
+                                             counts)
     k1_launches += k1_g
     k3_launches += k3_g
+    k4_launches += k4_g
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_seg["max_abs_err"])
 
     # counted runs 20-23, the four example workflows
@@ -4559,6 +4874,10 @@ def main(argv=None) -> int:
         _kernel_entry("matmat (K3, streamed Gram matmat, N=65536 B=1024)",
                       "gp_ss_ak_torch/csrc/matmat.cu",
                       "gp_ss_ak_tpu/ops/matvec.py:90", k3_launches, k3),
+        _kernel_entry("contraction (K4, the gradient's contraction, "
+                      "N=100000 rank 9)", "gp_ss_ak_torch/csrc/contraction.cu",
+                      "none (XLA: gp_ss_ak_tpu/inference/iterative.py:855)",
+                      k4_launches, k4),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ gradient at N where the kernel matrix cannot exist in memory
   logdet A  m-probe stochastic Lanczos quadrature over Rademacher
             probes, optionally on the pivoted-Cholesky-whitened operator;
   gradient  Hutchinson trace + fit-term contractions against dA/dtheta
-            through a chunked dense row build (`_grad_contraction`).
+            in closed form (`_grad_contraction`: ops/contraction.py,
+            K4 on the card).
 
 Operator modes (`choose_mode`): "chol" materializes A with K1 and
 factors it exactly; "gemm" holds A in float32 and runs CG/SLQ as GEMMs;
@@ -29,7 +30,7 @@ time, by stage:
   iterative._grad_contraction     the gradient's contraction
   iterative._materialized_chol    the materialized factor ("chol")
 No range sits inside a per-step loop (the pivoted Cholesky's steps, CG
-iterations, Lanczos steps, contraction chunks).
+iterations, Lanczos steps).
 
 What differs from JAX, and why:
   * `lax.while_loop`, `fori_loop` and `scan` become Python loops. A CG
@@ -41,11 +42,11 @@ What differs from JAX, and why:
     data's device, seeded by the caller), which draw other bits from
     the same seed. Every function that draws probes also accepts the
     probe matrix itself (`Z=`), so a test hands both packages one matrix.
-  * `_grad_contraction` takes `jax.grad` through `lax.map(remat(...))`
-    over row chunks. One torch graph over all chunks would keep O(N^2)
-    saved tensors, so here each chunk runs forward and backward on its
-    own and the leaf gradients (sigma, bias, sn2, Xm) are summed: live
-    memory stays O(chunk x N), as remat gives.
+  * `_grad_contraction` takes no autograd where JAX takes `jax.grad`
+    through `lax.map(remat(...))` over row chunks: the gradient is
+    written out in closed form, and its O(N^2) part (two sums a row) is
+    one pass of the hand-written kernel K4 on the card, which stores no
+    Gram entry, and chunked plain torch on the CPU.
   * The mode thresholds scale with the card's memory (`_mode_thresholds`)
     like JAX's with the TPU's; the CPU keeps the 16 GB defaults.
   * The JAX functions' tile sizes (tm, tn) and `interpret` switch have
@@ -71,7 +72,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.autograd.profiler import record_function
 
-from gp_ss_ak_torch.kernels.distance import gram_sqdist, highest_precision
+from gp_ss_ak_torch.kernels.distance import highest_precision
 
 
 def _t(v, like: torch.Tensor) -> torch.Tensor:
@@ -904,44 +905,46 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
 @record_function("iterative._grad_contraction")
 def _grad_contraction(it_gp: IterativeGP, alpha, ws, zs, chunk: int):
     """The differentiable part of the gradient: given alpha = A^-1 y and
-    probe pairs (w = A^-1 z, z), contract against dA/dtheta through a
-    dense row build, `chunk` rows at a time (iterative.py:855-910):
+    probe pairs (w = A^-1 z, z), the gradient of
 
-      grad = d/dtheta [ 1/2 sum_j c_j U[:,j]' (A V)[:,j] ]
+      1/2 sum_j c_j U[:,j]' (A V)[:,j] = 1/2 sum_pq W(p, q) A(p, q)
 
-    with U = [w_1..w_m, alpha], V = [z_1..z_m, alpha], c = [1/m.., -1]:
-    one pass over the Gram rows carries all m+1 columns. Each chunk runs
-    its own forward and backward and the leaf gradients are summed, so
-    live memory is O(chunk x N). Returns (d_sigma, d_bias, d_sn2, d_Xm)."""
-    f32 = torch.float32
-    n = alpha.shape[0]
+    with U = [w_1..w_m, alpha], V = [z_1..z_m, alpha], c = [1/m.., -1]
+    and W = (c U) V', in closed form (the JAX package differentiates a
+    chunked row build, iterative.py:855-910; the values agree to
+    round-off): with t and g of ops.contraction (K4 on the card, its
+    plain version `chunk` rows at a time on the CPU),
+
+      d_sigma = sigma sum_p t[p],   d_Xm = -sigma^2 / 2 g,
+      d_bias = 1/2 sum_j c_j (sum U[:,j]) (sum V[:,j]),
+      d_sn2 = 1/2 sum_p W(p, p).
+
+    Ranks past ops.contraction.MAX_RANK run as column groups (t and g
+    are linear in W). Returns (d_sigma, d_bias, d_sn2, d_Xm), float32."""
+    from gp_ss_ak_torch.ops.contraction import MAX_RANK, expans_contraction
+
+    f32, f64 = torch.float32, torch.float64
     m = ws.shape[0]
     U = torch.cat([ws.T, alpha[:, None]], 1).detach().to(f32)
     V = torch.cat([zs.T, alpha[:, None]], 1).detach().to(f32)
     coef = torch.cat([torch.full((m,), 1.0 / m, dtype=f32,
                                  device=U.device),
                       torch.full((1,), -1.0, dtype=f32, device=U.device)])
-    leaves = [t.detach().to(f32).requires_grad_()
-              for t in (it_gp.sigma, it_gp.bias, it_gp.sn2, it_gp.Xm)]
-    sigma, bias, sn2, Xm = leaves
-    cols = torch.arange(n, device=Xm.device)
-    total = [torch.zeros_like(t) for t in leaves]
-    with torch.enable_grad(), highest_precision():
-        for s in range(0, n, chunk):
-            rows = Xm[s:s + chunk]
-            c = rows.shape[0]
-            d2 = gram_sqdist(rows, Xm)
-            on_diag = (s + torch.arange(c, device=Xm.device))[:, None] \
-                == cols[None, :]
-            r = torch.sqrt(torch.where(on_diag, 1.0,
-                                       torch.clamp_min(d2, 1e-30)))
-            k = sigma * sigma * torch.where(on_diag, 1.0, torch.exp(-r))
-            k = k + bias + sn2 * on_diag
-            per_col = torch.sum(U[s:s + c] * (k @ V), dim=0)     # (m+1,)
-            val = 0.5 * torch.dot(per_col, coef)
-            for acc, g in zip(total, torch.autograd.grad(val, leaves)):
-                acc += g
-    return tuple(total)
+    cU = U * coef
+    Xm = it_gp.Xm.detach().to(f32).contiguous()
+    sigma = it_gp.sigma.detach().to(f32)
+    t, g = None, None
+    for s in range(0, m + 1, MAX_RANK):
+        tk, gk = expans_contraction(Xm, cU[:, s:s + MAX_RANK].contiguous(),
+                                    V[:, s:s + MAX_RANK].contiguous(), chunk)
+        t, g = (tk, gk) if t is None else (t + tk, g + gk)
+    cU64, V64 = cU.to(f64), V.to(f64)
+    d_sigma = sigma * torch.sum(t, dtype=f64).to(f32)
+    d_bias = 0.5 * torch.dot(cU64.sum(0), V64.sum(0))
+    d_sn2 = 0.5 * torch.sum(cU64 * V64)
+    d_Xm = (-0.5 * sigma * sigma) * g
+    return (d_sigma, d_bias.to(f32).reshape(it_gp.bias.shape),
+            d_sn2.to(f32).reshape(it_gp.sn2.shape), d_Xm)
 
 
 @record_function("iterative._materialized_chol")

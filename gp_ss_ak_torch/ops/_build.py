@@ -73,6 +73,13 @@ def _declare(lib) -> None:
     lib.gp_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                   i32, i32, i32, ptr]
     lib.gp_matvec_f32.restype = i32
+    # dp, mp, shape (4 ints), device
+    lib.gp_contraction_shape.argtypes = [i32, i32, ptr, i32]
+    lib.gp_contraction_shape.restype = i32
+    # rec, partial, rows_pad, slice_w, slices, dp, mp, device, stream
+    lib.gp_contraction_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
+                                       i32, ptr]
+    lib.gp_contraction_f32.restype = i32
     # out, poly, iters, blocks, device, stream
     lib.gp_ex2_probe.argtypes = [ptr, i32, i32, i32, i32, ptr]
     lib.gp_ex2_probe.restype = i32

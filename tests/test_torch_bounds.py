@@ -54,8 +54,9 @@ def one_thread():
     (cs.matmat_work(N, 3, 64), 3.332, "tensor"),             # SLQ
     (cs.matmat_work(N, 3, 256), 13.33, "tensor"),            # a request
     (cs.matmat_work(N, 3, 1024), 53.31, "tensor"),           # CLI's solves
+    (cs.contraction_work(100000, 3, 9), 9.851, "SFU/FMA"),   # K4, the fit
 ], ids=["K1-16384", "K2", "K3-B1", "K3-B9", "K3-B64", "K3-B256",
-        "K3-B1024"])
+        "K3-B1024", "K4-100000"])
 def test_bound_matches_perf_md(work, ms, term):
     b_ms, b_term = cs.bound(work, sms=SMS, clock_hz=CLOCK_HZ)
     assert b_term == term

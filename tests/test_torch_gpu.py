@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1, K2 and K3, and the training path,
-on the card (marker `gpu`).
+"""The hand-written CUDA kernels K1, K2, K3 and K4, and the training
+path, on the card (marker `gpu`).
 
 Every test here needs a CUDA device and skips without one; the check
 runs inside the fixture, never at import. On a machine with a card and
@@ -21,6 +21,9 @@ it must reject there). The card tests add 4 float32 ulps of the output,
 which dominate at tiny n: at n = 1 the output is (s2 + bias + sn2) * v,
 and its float32 roundings alone reach ~2 ulps. K2 (one vector) is held
 to K3's gate; against K3 at B = 1 (another summation order) to twice it.
+K4 (the gradient's contraction, float32 only) is held to its plain
+version evaluated in float64 on the same inputs, TOL_K4 of each output's
+largest entry: each row's t and g sum n float32 terms of mixed sign.
 K1's batched entry (one launch for B members, each with its own
 scalars) is held to the same tolerances per member, and each member's
 output must equal a 2-D launch on that member bit for bit: both run the
@@ -60,6 +63,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 SIGMA, BIAS, SN2 = 0.6, 0.2, 0.016
 SCALE = SIGMA * SIGMA + BIAS
 TOL_K3 = 1.5e-7
+TOL_K4 = 1e-5
 
 
 @pytest.fixture()
@@ -356,6 +360,106 @@ def test_matvec_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         matvec.streamed_matvec(Xk, scal, BIAS, SN2, v[:8].contiguous())
     with pytest.raises(ValueError):
         matvec.streamed_matvec(Xk[:, :3].contiguous(), scal, BIAS, SN2, v)
+
+
+def _contraction_case(n, d, k, cuda, seed):
+    """Points, c * U and V of a rank-k contraction: U holds k - 1 probe
+    solves (normal, scale 3) and alpha, V the probes (+-1) and alpha,
+    c = [1/(k-1).., -1]; points 3 and 7 coincide (n > 7)."""
+    X = _points(n, d, cuda, seed).float()
+    if n > 7:
+        X[7] = X[3]
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    alpha = torch.randn(n, 1, generator=g, device=cuda)
+    W = 3.0 * torch.randn(n, k - 1, generator=g, device=cuda)
+    Z = torch.randint(0, 2, (n, k - 1), generator=g, device=cuda) * 2.0 - 1
+    coef = torch.tensor([1.0 / (k - 1)] * (k - 1) + [-1.0], device=cuda)
+    cU = (torch.cat([W, alpha], 1) * coef).contiguous()
+    V = torch.cat([Z, alpha], 1).contiguous()
+    return X.contiguous(), cU, V
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 3, 9), (37, 2, 5), (130, 1, 9),
+                                   (257, 5, 9), (4097, 3, 9),
+                                   (4097, 3, 17), (5000, 3, 33),
+                                   (20000, 3, 9), (20000, 3, 17)])
+def test_contraction_kernel_matches_plain(cuda, n, d, k):
+    """K4 (ops/contraction.py) against its plain version in float64 on
+    the same float32 inputs: t and g within TOL_K4 of their largest
+    entries (each a float32 sum of n terms of mixed sign); d = 4..16
+    take the general instance; two launches give equal bits."""
+    from gp_ss_ak_torch.ops import contraction
+
+    X, cU, V = _contraction_case(n, d, k, cuda, seed=n + d + k)
+    before = contraction.launches
+    t, g = contraction.expans_contraction(X, cU, V)
+    t2, g2 = contraction.expans_contraction(X, cU, V)
+    torch.cuda.synchronize()
+    assert contraction.launches == before + 2
+    assert t.dtype == g.dtype == torch.float32
+    assert tuple(t.shape) == (n,) and tuple(g.shape) == (n, d)
+    assert torch.equal(t, t2) and torch.equal(g, g2)
+    t64, g64 = contraction.expans_contraction_plain(
+        X.double(), cU.double(), V.double())
+    for got, want in ((t, t64), (g, g64)):
+        err = (got.double() - want).abs().max().item()
+        assert err <= TOL_K4 * want.abs().max().item()
+    assert torch.isfinite(g).all()
+
+
+def test_grad_contraction_is_one_launch_on_cuda(cuda):
+    """`_grad_contraction` on the card: one K4 launch a call at rank 9
+    and 17, two past MAX_RANK (column groups), and the four gradients
+    within TOL_K4 of the closed form in float64 on the same inputs (the
+    plain version on the card, the O(N m) terms in float64)."""
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import contraction
+
+    n = 3000
+    X = _points(n, 3, cuda, seed=12).float()
+    g = torch.Generator(device=cuda).manual_seed(13)
+    for probes, launches in ((8, 1), (16, 1), (40, 2)):
+        alpha = torch.randn(n, generator=g, device=cuda)
+        ws = 3.0 * torch.randn(probes, n, generator=g, device=cuda)
+        zs = torch.randint(0, 2, (probes, n), generator=g,
+                           device=cuda) * 2.0 - 1
+        gp = ti.IterativeGP(X, torch.tensor(SIGMA, device=cuda),
+                            torch.tensor(BIAS, device=cuda),
+                            torch.tensor(SN2, device=cuda))
+        before = contraction.launches
+        got = ti._grad_contraction(gp, alpha, ws, zs, 1024)
+        assert contraction.launches - before == launches
+        coef = torch.tensor([1.0 / probes] * probes + [-1.0],
+                            dtype=torch.float64, device=cuda)
+        cU = torch.cat([ws.T, alpha[:, None]], 1).double() * coef
+        V = torch.cat([zs.T, alpha[:, None]], 1).double()
+        t, gr = contraction.expans_contraction_plain(X.double(), cU, V)
+        want = (SIGMA * t.sum(), 0.5 * torch.dot(cU.sum(0), V.sum(0)),
+                0.5 * torch.sum(cU * V), -0.5 * SIGMA ** 2 * gr)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            err = (a.double() - b).abs().max().item()
+            assert err <= TOL_K4 * b.abs().max().item()
+
+
+def test_contraction_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from gp_ss_ak_torch.ops import contraction
+
+    X, cU, V = _contraction_case(64, 3, 9, cuda, seed=3)
+    with pytest.raises(TypeError):
+        contraction.expans_contraction(X.double(), cU, V)
+    with pytest.raises(TypeError):
+        contraction.expans_contraction(X, cU.double(), V.double())
+    with pytest.raises(ValueError):
+        contraction.expans_contraction(X.T.contiguous().T, cU, V)
+    with pytest.raises(ValueError):
+        contraction.expans_contraction(X, cU[:, ::2], V[:, ::2])
+    wide = torch.zeros(64, contraction.MAX_RANK + 1, device=cuda)
+    with pytest.raises(ValueError):
+        contraction.expans_contraction(X, wide, wide)
+    with pytest.raises(ValueError):
+        contraction.expans_contraction(torch.zeros(64, 17, device=cuda), cU,
+                                       V)
 
 
 def test_nlml_iterative_without_preconditioner_launches_k2(cuda):
