@@ -87,16 +87,20 @@ Phases, each of which raises on failure (nothing is caught):
      N = 32768, its residual through K3 and chol mode's exact value;
  15. K1's batched entry against its batched plain version at ragged B, n
      and m (square with its diagonal and cross, float64 and float32,
-     per-member scalars), each member bit for bit against a 2-D launch,
-     and its time at B = 256 members of 1024^2 beside its bound;
+     per-member scalars; at the batched paths' own shapes in their own
+     types, the ensemble's A in float64, its objective's), each member
+     bit for bit against a 2-D launch, and its time at B = 256 members
+     of 1024^2 beside its bound;
  16. the ensemble: `fit_ensemble` of 256 deposits x 1024 composites
-     (float32, maxiter 30), one batched K1 launch per batched
-     evaluation, every deposit's NLML below its start, four deposits
-     alone through `fit(optimizer="JIT")` against the batch, one
-     evaluation's split under torch.profiler, then `predict_ensemble`
-     at 1024 queries a deposit (MSE < 0.2 var(y) each);
- 17. `cli.main([... "train" -o JIT -# 5 ...])` at N = 16384, then `test`
-     on the trained model;
+     (float32 model, the objective in float64, maxiter 30), one batched
+     K1 launch per batched evaluation, every deposit's NLML below its
+     start, four deposits alone through `fit(optimizer="JIT")` against
+     the batch, the objective's evaluation timed and split under
+     torch.profiler, then `predict_ensemble` at 1024 queries a deposit
+     (MSE < 0.2 var(y) each);
+ 17. `cli.main([... "train" -o JIT -# 5 ...])` at N = 16384 (the
+     objective in float64) with its peak memory, then `test` on the
+     trained model;
  18. `sample_hyperposterior` (NUTS, 8 chains, N = 2048, float32, 4
      warmup + 4 samples, max_depth 8): samples finite and inside the
      box, one batched K1 launch per objective evaluation, split R-hat
@@ -290,8 +294,9 @@ MEAN_TOL = 1e-3                 # Predictor vs CLI means, times std(y)
 K1_BATCH_TIME = (256, 1024)
 ENS_B, ENS_N, ENS_Q, ENS_ITERS, ENS_SINGLE = 256, 1024, 1024, 30, 4
 ENS_SINGLE_RTOL = 1e-4          # a deposit alone vs in the batch: fun
-# and in float32, the first evaluation alone vs in the batch (measured
-# 6.4e-6 in the value, 1.7e-6 in the gradient on an H100)
+# and the first evaluation of the fit's objective (float64) alone vs in
+# the batch (6.4e-6 in the value, 1.7e-6 in the gradient on an H100 when
+# it ran in float32)
 ENS_FIRST_RTOL = 5e-5
 JIT_ITERS = 5
 # NUTS's sample counts are cut from 100 + 100 to 4 + 4 to keep the
@@ -2474,14 +2479,16 @@ def phase_warped_identity_eval(device, seed: int, train: str, test: str,
 def phase_k1_batched(device, seed: int, cases=None, time_shape=True):
     """K1's batched entry against its batched plain version in float64
     at ragged B, n and m (square with its diagonal and cross), float64
-    and float32, and at the batched paths' own shapes in float32, every
-    member with its own scalars; each member's output bit for bit
+    and float32, and at the batched paths' own shapes in their own types
+    (the ensemble's A in its objective's float64, the rest in float32),
+    every member with its own scalars; each member's output bit for bit
     against a 2-D launch on that member; its time at K1_BATCH_TIME in
     float32 beside its bound, and that timed output checked the same
     way. Returns the report."""
     import torch
 
     from gp_ss_ak_torch.ops import pairwise
+    from gp_ss_ak_torch.optim.api import OBJECTIVE_DTYPE
 
     if cases is None:
         # ragged shapes, then those of the batched paths: the ensemble's
@@ -2508,7 +2515,10 @@ def phase_k1_batched(device, seed: int, cases=None, time_shape=True):
               f"{'diag' if m is None else 'cross'}"
         types = ((torch.float64, TOL_F64), (torch.float32, TOL_F32))
         if B * n * (n if m is None else m) > 2 ** 24:
-            types = types[1:]   # a batched path's shape, in its type
+            # a batched path's shape, in its type
+            own = (OBJECTIVE_DTYPE if (B, n, m) == (ENS_B, ENS_N, None)
+                   else torch.float32)
+            types = tuple(t for t in types if t[0] == own)
         for dtype, tol in types:
             Xd = X.to(dtype)
             Yd = None if Y is None else Y.to(dtype)
@@ -2595,9 +2605,10 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
                    iters=ENS_ITERS, single=ENS_SINGLE):
     """Counted: `fit_ensemble` of B deposits, then `predict_ensemble`;
     then, outside the count, the start values, four deposits fitted
-    alone through fit(optimizer="JIT"), one batched evaluation's time
-    and its profiled split. Returns the (2-D, batched) K1 launches of
-    the counted run."""
+    alone through fit(optimizer="JIT"), and one batched evaluation of
+    the objective that the fit runs (float64, `OBJECTIVE_DTYPE`): its
+    time and its profiled split. Returns the (2-D, batched) K1 launches
+    of the counted run."""
     import torch
 
     from gp_ss_ak_torch.ensemble import fit_ensemble, predict_ensemble
@@ -2605,7 +2616,7 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
     from gp_ss_ak_torch.model import default_model
     from gp_ss_ak_torch.ops import cholesky, maybe_fused_A
     from gp_ss_ak_torch.optim import fit
-    from gp_ss_ak_torch.optim.api import (batched_nlml_fn,
+    from gp_ss_ak_torch.optim.api import (OBJECTIVE_DTYPE, batched_nlml_fn,
                                           batched_value_and_grad,
                                           unpack_batched)
 
@@ -2629,9 +2640,10 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
     after = counts()
     fit_launches = (fit_k1[0] - before[0], fit_k1[1] - before[1])
     pred_launches = (after[0] - fit_k1[0], after[1] - fit_k1[1])
-    print(f"ensemble fit: {B} deposits x {n} composites, d=3, f32, "
-          f"maxiter {iters}: {wall:.3f} s wall, {res.n_evals} batched "
-          f"evaluations ({wall / res.n_evals * 1e3:.3f} ms each on average), "
+    print(f"ensemble fit: {B} deposits x {n} composites, d=3, float32 "
+          f"model, float64 objective, maxiter {iters}: {wall:.3f} s wall, "
+          f"{res.n_evals} batched evaluations "
+          f"({wall / res.n_evals * 1e3:.3f} ms each on average), "
           f"iterations {int(res.n_iters.min())}-{int(res.n_iters.max())}, "
           f"{int(res.converged.sum())} converged; peak device memory "
           f"{peak:.3f} GiB; K1 launches (2-D, batched) {fit_launches}")
@@ -2643,12 +2655,13 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
         _check(pred_launches == (0, 2), f"predict_ensemble: expected 2 "
                f"batched K1 launches (A, cross), saw {pred_launches}")
 
-    # outside the count: the start, the single fits, the split
-    dtype = torch.float32
+    # outside the count: the start, the single fits, the split, all on
+    # the objective that the fit evaluates
+    dtype = OBJECTIVE_DTYPE
     Xt = torch.as_tensor(Xb, dtype=dtype, device=device)
     yt = torch.as_tensor(yb, dtype=dtype, device=device)
     f = batched_nlml_fn(model)
-    x0 = model.pack().detach().expand(B, -1)
+    x0 = model.pack().detach().to(dtype).expand(B, -1)
     with torch.no_grad():
         start = f(x0, Xt, yt)
     fun = res.fun
@@ -2668,13 +2681,14 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
     _check(bool(np.all(np.isfinite(mse)) and np.all(ratio < MSE_MAX)),
            "predict_ensemble: a deposit's MSE is not below 0.2 var(y)")
     _check(bool(torch.all(var > 0)), "predict_ensemble: variance <= 0")
-    # a deposit alone against the batch. In float32 the two differ by the
-    # round-off of the library calls, which pick other kernels for one
-    # matrix than for a batch. The first evaluation of the timed float32
-    # batch is gated against each deposit alone; the fits after `iters`
-    # iterations, a path that this round-off steers, are gated in float64
-    # (the first `single` deposits in a batch of their own against each
-    # alone) and printed in float32
+    # a deposit alone against the batch. The two differ by the round-off
+    # of the library calls, which pick other kernels for one matrix than
+    # for a batch. The first evaluation of the timed batch is gated
+    # against each deposit alone; the fits after `iters` iterations, a
+    # path that this round-off steers through the float32 optimizer
+    # state, are gated with a float64 model (the first `single` deposits
+    # in a batch of their own against each alone) and printed with the
+    # float32 one
     vg = batched_value_and_grad(f, Xt, yt)
     vB, gB = vg(x0)
     for b in range(single):
@@ -2682,7 +2696,7 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
             x0[b:b + 1])
         dv = float(abs(v1[0] - vB[b]) / max(abs(float(vB[b])), n))
         dg = float((g1[0] - gB[b]).abs().max() / gB[b].abs().max())
-        print(f"deposit {b}, first evaluation in float32, alone vs in the "
+        print(f"deposit {b}, first evaluation in float64, alone vs in the "
               f"batch of {B}: value {float(vB[b]):.6f}, |diff| / max(|v|, n) "
               f"{dv:.2e}; gradient max |diff| / max |g| {dg:.2e} (tol "
               f"{ENS_FIRST_RTOL:.0e} each)")
@@ -2727,7 +2741,7 @@ def phase_ensemble(device, seed: int, counts, B=ENS_B, n=ENS_N, q=ENS_Q,
               "QuadLogdet.backward": "QW adjoint (trsm + GEMM)",
               "FusedExpansBiasA.backward": "K1 backward"}
     _, pw, split, total, top = profile_split(lambda: vg(x0), labels)
-    print(f"ensemble batched evaluation ({B} x {n}, f32): median "
+    print(f"ensemble batched evaluation ({B} x {n}, f64): median "
           f"{med * 1e3:.3f} ms (host clock); batched potrf alone "
           f"{potrf_ms:.4f} ms ({potrf_ms / (med * 1e3):.3f} of an "
           f"evaluation); torch.profiler device time: "
@@ -2760,6 +2774,7 @@ def phase_train_jit(train: str, test: str, workdir: str, counts,
     before = counts()
     out = io.StringIO()
     batched_lbfgs.minimize = spy
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -2768,9 +2783,11 @@ def phase_train_jit(train: str, test: str, workdir: str, counts,
     finally:
         batched_lbfgs.minimize = minimize
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     text = out.getvalue()
     print("cli train -o JIT:", " | ".join(text.strip().splitlines()),
-          f"(rc {rc}, {wall:.3f} s wall, file IO included)")
+          f"(rc {rc}, {wall:.3f} s wall, file IO included; the objective "
+          f"in float64; peak device memory {peak:.3f} GiB)")
     _check(rc == 0, f"cli train -o JIT returned {rc}")
     trained = counts()
     phase_main(train, test, model_path)

@@ -4,7 +4,8 @@ Port of gp_ss_ak_tpu/ensemble/batched.py. Hundreds of INDEPENDENT GPs
 (one per ore deposit or domain) are fitted together: every evaluation
 of the batched L-BFGS (optim/batched_lbfgs.py) evaluates all deposits
 at once, which for the flagship model is one batched K1 launch, one
-batched potrf and one batched QW adjoint (optim.api.batched_nlml_fn).
+batched potrf and one batched QW adjoint (optim.api.batched_nlml_fn),
+in float64 whatever the model's dtype (optim.api.OBJECTIVE_DTYPE).
 Prediction is the exact posterior of every deposit at once.
 
 All GPs share (n, d, m) shapes — pad ragged deposits upstream with
@@ -41,16 +42,24 @@ def _as(model: GPModel, a) -> torch.Tensor:
 def fit_ensemble(model: GPModel, Xb, yb, maxiter: int = 100,
                  lower: Optional[np.ndarray] = None,
                  upper: Optional[np.ndarray] = None,
-                 mesh=None) -> EnsembleFit:
+                 mesh=None, hook=None) -> EnsembleFit:
     """Fit B independent GPs: Xb (B, n, d), yb (B, n), each from the
     model's hyperparameters, on the model's device and dtype.
+
+    hook(points (B, p), values (B,), gradients (B, p), mask (B,)) is
+    called once per batched evaluation, with the device tensors the
+    optimizer holds and no host read of its own; a true return ends the
+    fit with each deposit's best so far and `converged` false
+    (optim/batched_lbfgs.py).
 
     With `mesh`, every rank passes the whole batch and fits its
     contiguous share of at least one deposit (B >= mesh.size); each
     deposit's fit is what the undivided batch gives it, and the result
-    (n_evals: the most any rank made) is the same on every rank."""
+    (n_evals: the most any rank made) is the same on every rank. Each
+    rank's hook sees its own share."""
     if mesh is None:
-        res = minimize_batched(model, Xb, yb, maxiter, lower, upper)
+        res = minimize_batched(model, Xb, yb, maxiter, lower, upper,
+                               hook=hook)
         return EnsembleFit(res.x, res.fun, res.n_iters, res.converged,
                            res.n_evals)
     from gp_ss_ak_torch.parallel import comm
@@ -61,7 +70,7 @@ def fit_ensemble(model: GPModel, Xb, yb, maxiter: int = 100,
                          "ranks; give every rank one")
     lo, hi = comm.block_bounds(mesh, B)
     res = minimize_batched(model, Xb[lo:hi], yb[lo:hi], maxiter, lower,
-                           upper)
+                           upper, hook=hook)
     x = res.x
     cols = torch.stack([res.fun, res.n_iters.to(x.dtype),
                         res.converged.to(x.dtype)], dim=1)

@@ -224,10 +224,17 @@ def main(argv=None) -> int:
         return 0
     # one rank of a launch: make_mesh starts the world from the
     # environment
+    import torch.distributed as dist
+
     out = _dryrun_rank(args.n_devices, args.device, args.backend)
     with open(os.path.join(args.out, f"rank{os.environ['RANK']}.json"),
               "w") as f:
         json.dump(out, f)
+    # ended here, not at interpreter exit, where gloo's threads have
+    # aborted a finished rank ("terminate called without an active
+    # exception")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

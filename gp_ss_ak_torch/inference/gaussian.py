@@ -51,7 +51,7 @@ from gp_ss_ak_torch.inference import warping
 from gp_ss_ak_torch.inference.likelihoods import Gaussian, WarpedGaussian
 from gp_ss_ak_torch.inference.quadrature import gauss_hermite
 from gp_ss_ak_torch.kernels.distance import highest_precision
-from gp_ss_ak_torch.ops.chol import cholesky
+from gp_ss_ak_torch.ops.chol import cho_solve, cholesky
 from gp_ss_ak_torch.ops.fused import (_is_flagship, maybe_fused_A,
                                       maybe_fused_cross)
 from gp_ss_ak_torch.utils.psd import robust_cholesky
@@ -149,7 +149,7 @@ class QuadLogdet(torch.autograd.Function):
     def forward(ctx, A, gy):
         with highest_precision():
             L = cholesky(A)
-            alpha = torch.cholesky_solve(gy[..., None], L)[..., 0]
+            alpha = cho_solve(L, gy[..., None])[..., 0]
         ctx.save_for_backward(L, alpha)
         return 0.5 * torch.sum(gy * alpha, dim=-1) + torch.sum(
             torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)

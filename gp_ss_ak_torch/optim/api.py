@@ -13,7 +13,8 @@ back the value and the gradient.
 `optimizer="JIT"` (also "LBFGS-JIT", "DEVICE"; the CLI's `-o JIT`) runs
 the batched L-BFGS of optim/batched_lbfgs.py on one problem: the JAX
 package's whole-fit device optimizer (optim/jax_lbfgs.py), here a host
-loop of batched evaluations. `batched_nlml_fn` is the objective of B
+loop of batched evaluations whose objective runs in float64
+(`OBJECTIVE_DTYPE`). `batched_nlml_fn` is the objective of B
 independent problems at once (the multi-deposit ensembles, the
 sampler's chains).
 
@@ -35,6 +36,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 from gp_ss_ak_torch.inference import gaussian
 from gp_ss_ak_torch.inference.iterative import (
@@ -130,24 +132,50 @@ def batched_value_and_grad(f, X: torch.Tensor, y: torch.Tensor):
     return vg
 
 
+#: the arithmetic of the batched fit's objective, whatever the model's
+#: dtype. In float32 the NLML's gradient at 256 deposits x 1024
+#: composites, once a fit has taken sn2 below ~1e-3, was off the exact
+#: float64 one by a median 0.039 and up to 30.6 of its scale: no better
+#: than TF32 products (median 0.235), and still up to 0.54 with the Gram,
+#: the factor and the QW adjoint in float64 and only the Gram's backward
+#: in float32. In float64: up to 1.6e-4, at 99.9 ms an evaluation
+#: against float32's 69.7 (NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md, ens256-fit).
+OBJECTIVE_DTYPE = torch.float64
+
+
 def minimize_batched(model: GPModel, X, y, maxiter: int,
-                     lower=None, upper=None, jitter: float = 0.0):
+                     lower=None, upper=None, jitter: float = 0.0,
+                     hook=None):
     """The batched L-BFGS on B independent problems, X (B, n, d) and
     y (B, n), each from the model's hyperparameters, on the model's
     device and dtype, in the box [lower, upper] ((p,), the default box
-    when None). Returns batched_lbfgs.minimize's result."""
+    when None). Each batched evaluation is a profiler range,
+    "ensemble.evaluate"; `hook` sees each one and may end the fit
+    (batched_lbfgs.minimize). Returns batched_lbfgs.minimize's
+    result.
+
+    The optimizer's state is in the model's dtype; the data go to
+    `OBJECTIVE_DTYPE` (float64) as given, and the objective evaluates in
+    it and hands its values and gradients back in the model's dtype."""
     flat0 = model.pack().detach()
 
-    def as_(a):
-        return torch.as_tensor(a, dtype=flat0.dtype, device=flat0.device)
+    def as_(a, dtype=flat0.dtype):
+        return torch.as_tensor(a, dtype=dtype, device=flat0.device)
 
-    X, y = as_(X), as_(y)
+    X, y = as_(X, OBJECTIVE_DTYPE), as_(y, OBJECTIVE_DTYPE)
     p = flat0.shape[0]
     lb = as_(np.full(p, DEFAULT_LOWER) if lower is None else lower)
     ub = as_(np.full(p, DEFAULT_UPPER) if upper is None else upper)
     vg = batched_value_and_grad(batched_nlml_fn(model, jitter), X, y)
-    return batched_lbfgs.minimize(vg, flat0.expand(X.shape[0], p), lb, ub,
-                                  maxiter=maxiter)
+
+    def evaluate(flats):
+        with record_function("ensemble.evaluate"):
+            f, g = vg(flats.to(OBJECTIVE_DTYPE))
+            return f.to(flats.dtype), g.to(flats.dtype)
+
+    return batched_lbfgs.minimize(evaluate, flat0.expand(X.shape[0], p),
+                                  lb, ub, maxiter=maxiter, hook=hook)
 
 
 def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0,
@@ -386,10 +414,9 @@ def _fit_device_loop(model: GPModel, X, y, lb, ub, iters: int,
     package's fit runs jax_lbfgs.minimize: no per-evaluation record (the
     result's n_evals is -1), `timing["total_wall_s"]` for the whole fit,
     and the stop reason "device_loop_converged" or "maxiter"."""
-    flat0 = model.pack()
-    dtype, device = flat0.dtype, flat0.device
-    Xd = torch.as_tensor(X, dtype=dtype, device=device)[None]
-    yd = torch.as_tensor(y, dtype=dtype, device=device)[None]
+    device = model.pack().device
+    Xd = torch.as_tensor(X, dtype=OBJECTIVE_DTYPE, device=device)[None]
+    yd = torch.as_tensor(y, dtype=OBJECTIVE_DTYPE, device=device)[None]
     t0 = time.perf_counter()
     out = minimize_batched(model, Xd, yd, iters, lb, ub, jitter)
     x = out.x[0].cpu().numpy().astype(np.float64)

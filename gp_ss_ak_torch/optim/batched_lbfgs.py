@@ -21,9 +21,10 @@ still active?). No CUDA graph.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.autograd.profiler import record_function
 
 
 class BatchedOptResult(NamedTuple):
@@ -67,12 +68,14 @@ def minimize(value_and_grad: Callable, x0: torch.Tensor,
              lower: torch.Tensor, upper: torch.Tensor,
              maxiter: int = 100, memory: int = 6,
              gtol: float = 1e-6, ftol: float = 1e-9,
-             max_backtracks: int = 20) -> BatchedOptResult:
+             max_backtracks: int = 20,
+             hook: Optional[Callable] = None) -> BatchedOptResult:
     """Minimize B independent problems at once.
 
     value_and_grad maps points (B, p) to values (B,) and gradients
     (B, p) for all members in one call; x0 is (B, p); lower and upper
-    are (p,) or (B, p), on x0's device and dtype."""
+    are (p,) or (B, p), on x0's device and dtype. hook(points, values,
+    gradients, mask) -> bool sees each evaluation (module docstring)."""
     B, p = x0.shape
     x = torch.clamp(x0, lower, upper)
     f, g = value_and_grad(x)
@@ -84,22 +87,36 @@ def minimize(value_and_grad: Callable, x0: torch.Tensor,
     it = torch.zeros(B, dtype=torch.long, device=x.device)
     done = torch.zeros(B, dtype=torch.bool, device=x.device)
     min_t = 2.0 ** (-max_backtracks)
+    # the start's evaluation reaches the hook after the first flag read
+    start_unseen = hook is not None
+
+    def cut():
+        return BatchedOptResult(best_x, best_f, it,
+                                torch.zeros_like(done), n_evals)
 
     while True:
-        active = (it < maxiter) & ~done
-        if not bool(active.any()):
-            break
-        pg = x - torch.clamp(x - g, lower, upper)
-        kkt = torch.amax(torch.abs(pg), dim=-1) < gtol
+        with record_function("batched_lbfgs.direction"):
+            active = (it < maxiter) & ~done
+            more = bool(active.any())
+            if more:
+                pg = x - torch.clamp(x - g, lower, upper)
+                kkt = torch.amax(torch.abs(pg), dim=-1) < gtol
 
-        d = -_two_loop(g, S, Y, valid)
-        at_lo = x <= lower + 1e-12
-        at_hi = x >= upper - 1e-12
-        bad = (at_lo & (d < 0)) | (at_hi & (d > 0))
-        d = torch.where(bad, -g, d)
-        d = torch.where((at_lo & (g > 0)) | (at_hi & (g < 0)), 0.0, d)
-        descent = torch.sum(d * g, dim=-1) < 0
-        d = torch.where(descent[:, None], d, -g)
+                d = -_two_loop(g, S, Y, valid)
+                at_lo = x <= lower + 1e-12
+                at_hi = x >= upper - 1e-12
+                bad = (at_lo & (d < 0)) | (at_hi & (d > 0))
+                d = torch.where(bad, -g, d)
+                d = torch.where((at_lo & (g > 0)) | (at_hi & (g < 0)), 0.0,
+                                d)
+                descent = torch.sum(d * g, dim=-1) < 0
+                d = torch.where(descent[:, None], d, -g)
+        if start_unseen:
+            start_unseen = False
+            if hook(x, f, g, active):
+                return cut()
+        if not more:
+            break
 
         # the line search: members still searching are those active and
         # not yet accepted with t above its floor
@@ -113,34 +130,44 @@ def minimize(value_and_grad: Callable, x0: torch.Tensor,
                                x)
             fc, gc = value_and_grad(cand)
             n_evals += 1
-            ok = searching & torch.isfinite(fc) & (fc < f)
-            x_new = torch.where(ok[:, None], cand, x_new)
-            f_new = torch.where(ok, fc, f_new)
-            g_new = torch.where(ok[:, None], gc, g_new)
-            accepted = accepted | ok
-            t = torch.where(searching, t * 0.5, t)
-            searching = searching & ~accepted & (t > min_t)
-            if not bool(searching.any()):
+            with record_function("batched_lbfgs.line_search"):
+                ok = searching & torch.isfinite(fc) & (fc < f)
+                x_new = torch.where(ok[:, None], cand, x_new)
+                f_new = torch.where(ok, fc, f_new)
+                g_new = torch.where(ok[:, None], gc, g_new)
+                accepted = accepted | ok
+                t = torch.where(searching, t * 0.5, t)
+                used = searching
+                searching = searching & ~accepted & (t > min_t)
+                more = bool(searching.any())
+            if hook is not None and hook(cand, fc, gc, used):
+                # keep what this iteration accepted before the stop
+                improved = active & (f_new < best_f)
+                best_x = torch.where(improved[:, None], x_new, best_x)
+                best_f = torch.where(improved, f_new, best_f)
+                return cut()
+            if not more:
                 break
 
-        s = x_new - x
-        yv = g_new - g
-        sy = torch.sum(s * yv, dim=-1)
-        good = active & accepted & (
-            sy > 1e-10 * torch.linalg.vector_norm(s, dim=-1)
-            * torch.linalg.vector_norm(yv, dim=-1))
-        S = _push(S, s, good)
-        Y = _push(Y, yv, good)
-        valid = _push(valid, torch.ones_like(good), good)
-        improved = active & (f_new < best_f)
-        best_x = torch.where(improved[:, None], x_new, best_x)
-        best_f = torch.where(improved, f_new, best_f)
-        small_change = accepted & (torch.abs(f - f_new)
-                                   <= ftol * (1.0 + torch.abs(f_new)))
-        stop = kkt | ~accepted | small_change
-        x = torch.where(active[:, None], x_new, x)
-        f = torch.where(active, f_new, f)
-        g = torch.where(active[:, None], g_new, g)
-        done = torch.where(active, stop, done)
-        it = it + active.long()
+        with record_function("batched_lbfgs.update"):
+            s = x_new - x
+            yv = g_new - g
+            sy = torch.sum(s * yv, dim=-1)
+            good = active & accepted & (
+                sy > 1e-10 * torch.linalg.vector_norm(s, dim=-1)
+                * torch.linalg.vector_norm(yv, dim=-1))
+            S = _push(S, s, good)
+            Y = _push(Y, yv, good)
+            valid = _push(valid, torch.ones_like(good), good)
+            improved = active & (f_new < best_f)
+            best_x = torch.where(improved[:, None], x_new, best_x)
+            best_f = torch.where(improved, f_new, best_f)
+            small_change = accepted & (torch.abs(f - f_new)
+                                       <= ftol * (1.0 + torch.abs(f_new)))
+            stop = kkt | ~accepted | small_change
+            x = torch.where(active[:, None], x_new, x)
+            f = torch.where(active, f_new, f)
+            g = torch.where(active[:, None], g_new, g)
+            done = torch.where(active, stop, done)
+            it = it + active.long()
     return BatchedOptResult(best_x, best_f, it, done, n_evals)
