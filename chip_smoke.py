@@ -19,19 +19,23 @@ Phases, each of which raises on failure (nothing is caught):
      (csrc/matvec.cu), K3 (csrc/matmat.cu), K4 (csrc/contraction.cu)
      and the ex2 probe
      (csrc/ex2_probe.cu) into one library, one nvcc per source; ptxas's
-     register report (no spills in K3's wide tile, K2 or the probe), the
-     HMMA count of K3's SASS (cuobjdump), K2's opcode histograms (no FRND
+     register report (no spills in any K3 instance, K2 or the probe), the
+     HMMA count of K3's SASS (cuobjdump), K3's register tiles' issue slots
+     per Gram entry of each inner loop, K2's opcode histograms (no FRND
      or F2I), the issue slots per Gram entry of its d = 3 inner loop and
      per exponential of the probe's;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
   4. K3 against its plain version in float64, at ragged sizes, at the
-     edges of its four tiles and at N = 65536 at every width the main
-     path uses, with a TF32 control that the same gate must reject and a
-     3xTF32 control that it must accept, equal bits across passes and
-     tiles, plus timings at those widths (and B = 65, the wide tile's
-     first), the SM clock while the widest runs, and a cuBLAS yardstick
-     on a prebuilt K;
+     edges of its register widths, column groups and wide tile, and at
+     N = 65536 at every width the main path uses, with a TF32 control
+     that the same gate must reject and a 3xTF32 control that it must
+     accept, each launch on the tile route its B picks
+     (`matvec.route_launches`), equal bits across passes and across
+     register widths, plus timings at N = 65536 (B = 1, 8, 9, 16, 64 and
+     the wide tile's 65, 256, 1024) and N = 100000 (B = 9, 32) beside the
+     bound and the SASS model, the SM clock while the widest runs, and a
+     cuBLAS yardstick on a prebuilt K;
   5. the ex2 probe: 2^x per SM per clock on MUFU and as K2's polynomial
      on the FP32 pipes; K2 against its plain version in float64 at
      ragged sizes (d = 2, 3, 4, 5) and at N = 16384, 32768 (the K2
@@ -739,7 +743,8 @@ def phase_build():
         if ("Compiling entry" in line or "registers" in line
                 or "spill" in line):
             print("  ptxas:", line.strip())
-    # K3's wide tile: no spills in ptxas's report, and HMMA in its SASS
+    # K3's wide tile and register tiles: no spills in ptxas's report, HMMA
+    # in the wide tile's SASS, the register tiles' slots per entry
     spills = re.findall(r"Function properties for (\S*matmat_tc_kernel\S*)"
                         r"\s+\d+ bytes stack frame, (\d+) bytes spill stores, "
                         r"(\d+) bytes spill loads", log)
@@ -747,15 +752,16 @@ def phase_build():
     for name, st, ld in spills:
         _check(st == ld == "0", f"K3 wide tile {name} spills: {st} bytes "
                f"stored, {ld} loaded")
+    k3_sass_report()
     sass = _sass()
     hmma = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "matmat" in name:
+        if "matmat_tc_kernel" in name:
             hmma[name] = part.count("HMMA")
-    print(f"build: HMMA instructions in K3's SASS, by kernel: {hmma}")
-    wide = [c for k, c in hmma.items() if "matmat_tc_kernel" in k]
-    _check(len(wide) == len(spills) and min(wide) > 0,
+    print(f"build: HMMA instructions in K3's wide tile SASS, by kernel: "
+          f"{hmma}")
+    _check(len(hmma) == len(spills) and min(hmma.values()) > 0,
            "K3's wide tile issues no HMMA")
     # K2 and the ex2 probe: no spills, no slow opcodes, slots per entry
     k2_spills = re.findall(r"Function properties for (\S*(?:matvec|ex2_probe)"
@@ -912,15 +918,21 @@ def split_tf32_control(Xk, scal, V):
 
 #: the widths the main path gives K3 at N_ITER_TRAIN (setup and whitened
 #: CG at 1, the fit's whitened CG at 9, the SLQ at 64, a 256-query
-#: request, the CLI's variance solves at 1024), plus 65, the wide tile's
-#: first width, for the middle/wide threshold; and timed passes of each
-K3_WIDTHS = ((1, 20), (9, 10), (64, 10), (65, 5), (256, 5), (1024, 3))
-#: K3's gate cases (n, B, d): ragged n at the narrow, middle and wide
-#: tiles' widths, the edges of the four tiles, and every timed width at
-#: the main path's N (each tile at the shape the path runs it)
+#: request, the CLI's variance solves at 1024), plus 8 and 16 (register
+#: tiles a set-up solve and a wider CG take) and 65, the wide tile's
+#: first width; and timed passes of each
+K3_WIDTHS = ((1, 20), (8, 20), (9, 10), (16, 10), (64, 10), (65, 5),
+             (256, 5), (1024, 3))
+#: K3's gate cases (n, B, d): ragged n at register, grouped and wide
+#: widths, d <= 3 and the general kernel (d = 4, 7), the edges of the
+#: register widths and column groups, and every timed width at the main
+#: path's N (each tile at the shape the path runs it)
 K3_CASES = ([(n, b, d) for n in (1000, 4097) for b in (1, 7, 64, 1024)
              for d in (3, 4)]
-            + [(4097, b, 3) for b in (16, 17, 65, 128, 129, 1000)]
+            + [(4097, b, d) for b in (9, 32) for d in (2, 7)]
+            + [(4097, b, 3) for b in (2, 3, 5, 8, 9, 10, 12, 13, 16, 17,
+                                      24, 25, 32, 33, 48, 49, 63, 65, 128,
+                                      129, 1000)]
             + [(N_ITER_TRAIN, b, 3) for b, _ in K3_WIDTHS])
 
 
@@ -949,7 +961,12 @@ def k3_gate(device, seed: int, cases=K3_CASES):
     worst, worst_ratio, ctl_ratio, split_ratio = 0.0, 0.0, float("inf"), 0.0
     for n, b, d in cases:
         Xk, scal, V = _k3_case(g, device, n, b, d)
-        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+        route = matvec.matmat_route(b)[0]
+        before = dict(matvec.route_launches)
+        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, d)
+        _check(matvec.route_launches[route] == before[route] + 1,
+               f"K3 at B={b} did not launch its {route} tile: "
+               f"{before} -> {matvec.route_launches}")
         ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), BIAS,
                                            SN2, V.double())
         lim = TOL_K3 * scale * V.double().abs().sum(dim=0)
@@ -961,7 +978,8 @@ def k3_gate(device, seed: int, cases=K3_CASES):
         ratio = float(share(Y.double()).max())
         cratio = float(share(tf32_control(Xk, scal, V)).max())
         sratio = float(share(split_tf32_control(Xk, scal, V)).max())
-        print(f"K3 n={n} B={b} d={d}: max |kernel-plain64| {err:.3e}, "
+        print(f"K3 n={n} B={b} d={d} ({route}): max |kernel-plain64| "
+              f"{err:.3e}, "
               f"worst column at {ratio:.3e} of its limit "
               f"{TOL_K3}*(s2+bias)*||V[:,b]||_1; TF32 control at "
               f"{cratio:.3e}, 3xTF32 control at {sratio:.3e}")
@@ -982,32 +1000,43 @@ def k3_gate(device, seed: int, cases=K3_CASES):
     return worst, worst_ratio
 
 
+#: register widths whose columns must equal those of B = 64 bit for bit:
+#: every width of one ex2 split (no exponential on the polynomial from
+#: B = 8 on; the narrower tiles put a share there, by the issue model)
+K3_BITS_WIDTHS = (8, 9, 12, 16, 17, 31, 32, 33, 63)
+
+
 def k3_bits(device, seed: int, n: int = 4097):
-    """Two K3 passes give equal bits on each tile (B = 9, 257, 1024), and
-    the 16-wide tile's output at B = 9 equals the middle tile's on the
-    same V zero-padded to 64 columns."""
+    """Two K3 passes give equal bits on each route (B = 9, 32, 257,
+    1024), and each register width of K3_BITS_WIDTHS gives the bits of
+    the same V zero-padded to B = 64 in every column it has."""
     import torch
 
     from gp_ss_ak_torch.ops import matvec
 
     g = torch.Generator(device=device).manual_seed(seed + 1)
-    for b in (9, 257, 1024):
+    for b in (9, 32, 257, 1024):
         Xk, scal, V = _k3_case(g, device, n, b, 3)
-        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+        Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, 3)
         _check(torch.equal(Y, matvec.streamed_matmat(Xk, scal, BIAS, SN2,
-                                                     V)),
+                                                     V, 3)),
                f"K3 passes differ at n={n} B={b}")
-        if b == 9:
-            # the kernel's own output (no bias or noise: torch's column
-            # sums of (n, 9) and (n, 64) tensors need not agree in bits)
-            V64 = torch.zeros(n, 64, device=device)
-            V64[:, :b] = V
-            Y9 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V)
-            Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64)
-            _check(torch.equal(Y9, Y64[:, :b]), "K3's 16-wide tile and "
-                   "middle tile differ at B = 9")
-    print(f"K3 bits at n={n}: two passes equal at B = 9, 257 and 1024; the "
-          f"16-wide tile equals the middle tile at B = 9")
+    # the kernel's own output (no bias or noise: torch's column sums of
+    # (n, b) and (n, 64) tensors need not agree in bits)
+    Xk, scal, V64 = _k3_case(g, device, n, 64, 3)
+    Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64, 3)
+    for b in K3_BITS_WIDTHS:
+        V = V64[:, :b].contiguous()
+        Vp = torch.zeros_like(V64)
+        Vp[:, :b] = V
+        Yp = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, Vp, 3)
+        _check(torch.equal(matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V, 3),
+                           Yp[:, :b]),
+               f"K3's register tile at B = {b} differs from B = 64")
+        _check(torch.equal(Yp[:, :b], Y64[:, :b]),
+               "K3 at B = 64: column bits depend on the other columns")
+    print(f"K3 bits at n={n}: two passes equal at B = 9, 32, 257 and 1024; "
+          f"B = {K3_BITS_WIDTHS} each equal to B = 64 in their columns")
 
 
 def k3_times(device, seed: int, widths=K3_WIDTHS, n: int = N_ITER_TRAIN):
@@ -1026,16 +1055,25 @@ def k3_times(device, seed: int, widths=K3_WIDTHS, n: int = N_ITER_TRAIN):
     for b, iters in widths:
         V = torch.randn(n, b, generator=g, device=device)
         ms = time_ms(lambda: matvec.streamed_matmat(
-            Xk, scal, bias_t, sn2_t, V), warmup=1, iters=iters)
+            Xk, scal, bias_t, sn2_t, V, 3), warmup=1, iters=iters)
         plain_ms = time_ms(lambda: matvec.streamed_matmat_plain(
             Xk, scal, bias_t, sn2_t, V), warmup=1, iters=min(iters, 5))
         b_ms, b_by = bound(matmat_work(n, 3, b), **card_rates())
         pairs = n * n / (ms * 1e-3) / 1e9
         tflops = 2.0 * n * n * b / (ms * 1e-3) / 1e12
-        print(f"K3 time N={n} B={b} d=3 f32: kernel {ms:.4f} ms "
+        route, w = matvec.matmat_route(b)
+        sass = ""
+        if route == "register":
+            slots = k3_sass_report()[(w, 1)]
+            floor = -(-b // w) * sass_floor_ms(n, slots)
+            sass = (f"; SASS {slots['total']:.3f} issue slots per Gram "
+                    f"entry of width {w} ({-(-b // w)} column group(s)), "
+                    f"floor {floor:.4f} ms, kernel at {floor / ms:.3f} of "
+                    f"it")
+        print(f"K3 time N={n} B={b} d=3 f32 ({route}): kernel {ms:.4f} ms "
               f"({pairs:.1f} Gpairs/s, {tflops:.2f} TFLOP/s of K.V), "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (set by "
-              f"{b_by}), kernel at {b_ms / ms:.3f} of it; "
+              f"{b_by}), kernel at {b_ms / ms:.3f} of it{sass}; "
               f"{sfu_shares(matmat_work(n, 3, b), ms)}")
         out[b] = (ms, plain_ms, b_ms, b_by)
     return out, Xk, scal, V
@@ -1051,15 +1089,18 @@ def phase_k3(device, seed: int):
 
     worst, _ = k3_gate(device, seed)
     k3_bits(device, seed)
+    seg, _, _, _ = k3_times(device, seed, K3_SEG_WIDTHS, n=N_SEG)
     times, Xk, scal, V = k3_times(device, seed)
-    report = {"max_abs_err": worst, **times}
+    print(f"K3 launches by route: {matvec.route_launches}")
+    report = {"max_abs_err": worst, **times,
+              **{f"{b}@{N_SEG}": t for b, t in seg.items()}}
     report["ms"], report["plain_ms"], report["bound_ms"], \
         report["bound_by"] = times[1024]
     n = Xk.shape[0]
     # does the card hold its clock under the widest pass? One nvidia-smi
     # reading while four queued passes (~1 s) run
     for _ in range(4):
-        matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+        matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, 3)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -1175,10 +1216,10 @@ def ex2_probe(device, iters: int = 4096):
 
 
 def sass_floor_ms(n: int, slots) -> float:
-    """The issue-slot model of one K2 pass from its SASS (phase 2's
-    slots per entry): MUFU at SFU_PER_SM_CLOCK an SM a clock and every
-    instruction at 128, whichever takes longer, at the card's maximum SM
-    clock."""
+    """The issue-slot model of one K2 pass (or of one column group of a
+    K3 register tile) from its SASS (phase 2's slots per entry): MUFU
+    at SFU_PER_SM_CLOCK an SM a clock and every instruction at 128,
+    whichever takes longer, at the card's maximum SM clock."""
     rates = card_rates()
     per_entry = max(slots["MUFU"] / SFU_PER_SM_CLOCK, slots["total"] / 128)
     return n * n * per_entry / (rates["sms"] * rates["clock_hz"]) * 1e3
@@ -1247,7 +1288,7 @@ def phase_k2(device, seed: int, sass):
             ms = time_ms(lambda: matvec.streamed_matvec(
                 Xk, scal, bias_t, sn2_t, v, d), warmup=3, iters=20)
             k3_ms = time_ms(lambda: matvec.streamed_matmat(
-                Xk, scal, bias_t, sn2_t, V), warmup=2, iters=10)
+                Xk, scal, bias_t, sn2_t, V, d), warmup=2, iters=10)
             plain_ms = time_ms(lambda: matvec.streamed_matvec_plain(
                 Xk, scal, bias_t, sn2_t, v), warmup=1, iters=3)
             b_ms, b_by = bound(matvec_work(n, 3), **card_rates())
@@ -1312,6 +1353,50 @@ def _sass() -> str:
 
 
 _K4_NAME = re.compile(r"contraction_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+#: a K3 register tile's template arguments: W, RPT, STEP, MINB, AHEAD, D4
+_K3_REG_NAME = re.compile(r"matmat_reg_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi"
+                          r"(\d+)ELb(\d)ELi(\d+)E")
+
+
+@functools.cache
+def k3_sass_report():
+    """K3's register tiles in ptxas's report (registers; no spill in any
+    instance) and their SASS: the issue slots per Gram entry of each
+    inner loop (an entry per MUFU.SQRT), by kind. Returns {(W, D4):
+    slots per entry by kind (`issue_classes`)}."""
+    from gp_ss_ak_torch.ops import _build
+
+    log = _build.build_info.get("log", "")
+    found = re.findall(
+        r"Compiling entry function '(\S*matmat_reg_kernel\S*)'.*?(\d+) "
+        r"bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+        r"loads\s+ptxas info\s+: Used (\d+) registers", log, re.S)
+    _check(len(found) > 0, "ptxas reported no K3 register tile")
+    for name, stack, st, ld, regs in found:
+        w, rpt, step, minb, ahead, d4 = _K3_REG_NAME.search(name).groups()
+        print(f"build: K3 register tile <W={w}, RPT={rpt}, STEP={step}, "
+              f"MINB={minb}, AHEAD={ahead}, D4={d4}>: {regs} registers, "
+              f"stack {stack} bytes, spills {st} bytes stored, {ld} loaded")
+        _check(st == ld == "0", f"K3 register tile {name} spills")
+    out = {}
+    for name, insns in sass_functions(_sass()).items():
+        m = _K3_REG_NAME.search(name)
+        if m is None:
+            continue
+        w, rpt, d4 = int(m.group(1)), int(m.group(2)), int(m.group(6))
+        loop = innermost_loop(insns, "MUFU")
+        _check(loop is not None, f"K3 register tile {name}: no inner loop")
+        lhist = opcode_histogram(loop)
+        entries = lhist.get("MUFU.SQRT", 0)
+        _check(entries > 0, f"K3 register tile {name}: loop {lhist}")
+        c = issue_classes(lhist, entries)
+        out[(w, d4)] = c
+        poly = entries - lhist.get("MUFU.EX2", 0)
+        print(f"build: K3 register tile W={w} RPT={rpt} D4={d4}: inner "
+              f"loop {len(loop)} instructions, {entries} Gram entries, "
+              f"{poly} exponentials on the polynomial; issue slots per "
+              f"entry: {_fmt_classes(c)}")
+    return out
 
 
 def k4_sass_report():
@@ -4252,11 +4337,12 @@ def phase_seg_vs_fused(device, model, X, y):
     t0 = time.perf_counter()
     vf, gf = fused(x)
     t_fused = time.perf_counter() - t0
-    before = matvec.launches
+    before, reg0 = matvec.launches, matvec.route_launches["register"]
     t0 = time.perf_counter()
     vs, gs = cold(x)
     t_seg = time.perf_counter() - t0
     k3 = matvec.launches - before
+    k3_reg = matvec.route_launches["register"] - reg0
     k, rel = cold.last_cg_iters, cold.last_rel_residual
     lanczos = STREAM_OPTS["lanczos_iters"]
     print(f"segmented vs fused at N={N_SEG} (golden start, sn2 "
@@ -4265,7 +4351,8 @@ def phase_seg_vs_fused(device, model, X, y):
           f"bits equal {np.array_equal(gs, gf)}; CG {k} vs "
           f"{fused.last_cg_iters} iterations, rel residual {rel:.3e}; "
           f"one evaluation {t_seg:.3f} s segmented, {t_fused:.3f} s fused "
-          f"(host clock); K3 launches {k3} (CG {k} + Lanczos {lanczos})")
+          f"(host clock); K3 launches {k3} (CG {k} + Lanczos {lanczos}), "
+          f"{k3_reg} of them on the register tiles")
     _check(np.isfinite(vs) and bool(np.all(np.isfinite(gs))),
            "segmented evaluation not finite")
     _check(vs == vf and np.array_equal(gs, gf)
@@ -4273,6 +4360,8 @@ def phase_seg_vs_fused(device, model, X, y):
            "segmented evaluation differs from the fused stream one")
     _check(k3 == k + lanczos, f"segmented evaluation: {k3} K3 launches, "
            f"expected {k} + {lanczos}")
+    _check(k3_reg == k3, f"segmented evaluation: {k3_reg} of {k3} K3 "
+           f"launches on the register tiles (CG at B = 9, SLQ at 32)")
     labels = {"iterative._pivchol": "pivoted Cholesky",
               "iterative.whitened_solve_info": "whitened CG",
               "iterative.slq_logdet_batched": "SLQ",

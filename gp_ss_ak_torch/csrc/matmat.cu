@@ -2,66 +2,99 @@
 //
 // Replaces the Pallas kernel gp_ss_ak_tpu/ops/matvec.py::_matmat_kernel
 // (:90, launched by _matmat, wrapped by streamed_matmat). On metric-mapped
-// points x (n rows, dp features, zero-padded to a multiple of 4) and B
+// points x (n rows, d features, zero-padded to dp, a multiple of 4) and B
 // right-hand sides V (n x B, row-major) it writes
 //
 //     Y[i, b] = sum_j K(i, j) V[j, b],   K(i, j) = s2 * exp(-||xi - xj||),
 //     K(i, i) = s2 exactly,
 //
 // with scal = [s2] read from device memory. K is never stored: each block
-// rebuilds the tiles it needs. The caller adds bias * colsum(V) + sn2 * V.
+// rebuilds the entries it needs. The caller adds bias * colsum(V) + sn2 * V.
 //
-// What bounds it on an H100 (N = 65536, d = 3). The least time of a pass
-// is the largest of four terms (chip_smoke.bound): the bytes (points, V and
-// Y once: under 1 ms at every B), the FP32 work outside the product
-// (3d + 1 operations an entry: 0.64 ms), the SFU work (an rsqrt and an ex2
-// an entry at MUFU's 16 a clock per SM: 2.05 ms at 132 SMs and 1.98 GHz; a
-// floor only while both run on MUFU, as here) and the product at float32
-// accuracy on the tensor cores (three TF32 products, 3 * 2 N^2 B
-// operations at 495 TFLOP/s: 53.3 ms at B = 1024).
+// What bounds it on an H100 (d = 3). A pass builds n^2 Gram entries, each
+// with two MUFU operations (the distance's square root and the
+// exponential, 16 an SM a clock) and ~8 issue slots of FP32 work, and
+// multiplies each into B outputs. The bytes (points, V and Y once) never
+// count.
 //  * B <= 64 (the setup's alpha solve at B = 1, the fit's whitened CG at
-//    B = 9, the SLQ at B = 64): the SFU term binds up to B = 40, the tensor
-//    term past it. The Gram build sets the pace (an entry issues its two
-//    SFU operations among a score of others): 9.2 ms at B = 1, 22% of
-//    the bound (H100 80GB HBM3, 700 W; chip_smoke.k3_times).
+//    B = 9, the segmented SLQ at B = 32, the fit's SLQ at 64): the FP32
+//    pipe. An entry costs ~8 slots to build, B FFMA to use and
+//    (1 + ceil(B / 4)) / RPT shared loads, which ptxas's SASS confirms
+//    (19.3 slots at B = 9, 45.1 at 32; chip_smoke.k3_sass_report). The SM
+//    issues 128 slots a clock, so at N = 100000 (1e10 entries, 132 SMs at
+//    1.98 GHz) a pass takes at least 5.8 ms at B = 9 and 13.5 ms at
+//    B = 32; the kernel takes 7.80 and 19.07 ms, 0.74 and 0.71 of that
+//    floor (the FFMA tiles it replaced: 23.60 and 44.01 ms). At N = 65536:
+//    2.48 ms at B = 1, 3.21 at 8, 3.44 at 9, 4.80 at 16, 17.26 at 64
+//    (9.14, 9.16, 10.63, 10.63, 19.54 before; H100 80GB HBM3, 700 W,
+//    chip_smoke.k3_times). Only at B <= 4 does MUFU bind, and there a
+//    share of the exponentials moves to the FP32 pipe (below).
 //  * B > 64 (a request's variance solves at B = 256, the CLI's at 1024):
-//    the tensor term binds, and the kernel runs at 22% of it: each
-//    128-column pass costs ~30 ms (60.8 ms at B = 256, 242.5 at 1024),
-//    and its Gram build and V copy do not yet overlap its products.
+//    the product on the tensor cores binds (three TF32 products, 3 * 2
+//    N^2 B operations at 495 TFLOP/s: 53.3 ms at N = 65536, B = 1024),
+//    and the kernel runs at 22% of it: each 128-column pass costs ~30 ms
+//    (60.8 ms at B = 256, 242.5 at 1024), and its Gram build and V copy
+//    do not yet overlap its products.
 //
 // Design, and how it differs from the TPU kernel:
 //  * The TPU kernel keeps all points resident in VMEM and accumulates the
 //    (tm, B) output block across its sequential minor grid axis. Blocks on
-//    the H100 run in no fixed order, so here the grid runs over (row tile,
-//    V-column tile) and each block LOOPS over every column tile of the
-//    training points, keeping its outputs in registers. No atomics: each
-//    output is summed by one thread in a fixed order, so a pass is
-//    bit-for-bit repeatable and lock-step CG iteration counts and stall
-//    cut-offs do not wander between runs.
-//  * Per column tile of training points the block stages the V tile and
-//    builds the Gram tile in shared memory by direct differences (exact
-//    zeros for coincident points, no expansion, no clamp), K = s2 on the
-//    global diagonal, then multiplies the two into its register
-//    accumulators. Every Gram entry a thread builds lies in one row, so
-//    that row's point sits in registers for the whole block; column points
-//    are float4 loads that a warp shares (L1 broadcast). The build is
-//    branch-free (gram_entry), so a thread's entries overlap their load
-//    and SFU latencies.
-//  * Four tiles, chosen by B at launch; the first three multiply in FP32
-//    FFMA (32-point tiles, V loaded ahead of the build, two barriers a
-//    tile), the fourth on the tensor cores:
-//      narrow (B <= 8): 128 x 8, RM x RC = 1 x 4 per thread. At B = 1 a
-//             wider tile would spend its FFMAs on masked columns.
-//      16     (8 < B <= 16, the fit's B = 9): 128 x 16, RM x RC = 2 x 4,
-//             four blocks an SM so that N = 65536's 512 row tiles run in
-//             one wave: 10.6 ms at B = 9, where the middle tile took 30.0
-//             and paid for 55 masked columns.
-//      middle (16 < B <= 64): 128 x 64, RM x RC = 8 x 4: 19.5 ms at
-//             B = 64, against 34.4 ms for the wide tile at B = 65, so
-//             the wide tile starts past 64.
-//      wide   (B > 64): 128 x 128, 3xTF32 on the tensor cores, below.
-//    Every FFMA tile sums each output over k in the same order from the
-//    same Gram values, so the 16-wide and middle tiles give equal bits.
+//    the H100 run in no fixed order, so here each block owns a set of
+//    rows and LOOPS over every column tile of the training points,
+//    keeping its outputs in registers. No atomics: each output is summed
+//    by one thread over j in a fixed order, so a pass is bit-for-bit
+//    repeatable and lock-step CG iteration counts and stall cut-offs do
+//    not wander between runs.
+//  * The register tiles (B <= 64; K2's design, csrc/matvec.cu, widened to
+//    B columns). A block of 128 threads stages a tile of 128 training
+//    points and the matching rows of V in shared memory: the points as
+//    float4s scaled by log2 e, V as rows of W floats. Each thread owns RPT
+//    rows (their scaled points in registers) and W columns of their
+//    outputs (RPT x W float32 accumulators). For each column point j it
+//    builds its RPT Gram entries in registers (d <= 3: three differences,
+//    d2 in an FMUL and two FFMA, one MUFU.SQRT, the exponential as ex2 of
+//    the negated distance) and multiplies each straight into its
+//    accumulators by FFMA, V[j, :] broadcast from shared memory (every
+//    lane reads the same row: LDS.128, no bank conflicts). No Gram value
+//    goes to shared memory; two barriers per 128-point tile. s2 scales
+//    each output once at the end.
+//  * The width W is a template parameter, picked by the wrapper
+//    (ops/matvec.py matmat_route) from B: the narrowest of 1, 2, 4, 8, 9,
+//    12, 16, 24 and 32 at least B, and past 32 two column groups (the
+//    grid's second axis) of the narrowest at least B / 2. So the main
+//    path's B = 1, 9, 32 and 64 mask no column. Columns past B are zero
+//    in shared memory and never written. Wider single tiles were slower:
+//    64 accumulators a row and the V loads they keep in flight exceed the
+//    registers, and a second group rebuilds the entries for ~8 slots in
+//    45 (B = 64 at N = 65536: 17.3 ms in two groups, 19.5-28 ms in one).
+//  * Each width runs in the shape that timed best on an H100 (RPT rows a
+//    thread, STEP columns an unrolled step, a register cap from MINB
+//    blocks an SM; launch_register): 2 rows a thread throughout, which
+//    halves the shared loads of V against one; 128 registers up to
+//    B = 16 (four blocks an SM), 168 at 24 and 32 (three: at N = 100000
+//    the 391 blocks then run in one wave; at 255 registers, two blocks
+//    an SM, they took 1.5 waves and 19.7-25.7 ms at B = 32). Up to B = 12 a
+//    tile's loads go out one tile ahead into registers (3-5% faster
+//    there); wider tiles lack the registers and stage straight to shared
+//    memory. ptxas reports no spill in any instance (chip_smoke gates it).
+//  * The split of the exponentials between MUFU.EX2 and the polynomial of
+//    ex2_poly.cuh (~10 FP32 slots) is a constant of each width, from the
+//    issue-slot model above (poly_of_8): with p of every 8 columns on the
+//    polynomial, MUFU needs (16 - p) / 8 operations an entry at 16 a
+//    clock, the FP32 pipe the slots plus 9 p / 8 at 128. The model puts
+//    3 of 8 on the polynomial at B = 1, 2 at B = 2, 1 at B = 4 and none
+//    from B = 8 on, where the FFMAs already fill the FP32 pipe. The class
+//    of an entry is fixed by its column's position in the unrolled step,
+//    never by timing, and K(i, i) is exactly s2 in both classes (d2 = 0
+//    exactly, sqrt.approx(0) = 0, ex2.approx(-0) = 1 and the polynomial's
+//    c0 = 1). Widths of the same split (every width from 8 on) give equal
+//    bits in every column they share: each output is the same chain of
+//    FFMAs over the same entries.
+//  * d <= 3 (the flagship's 3-D inputs) takes the packed kernel, which
+//    skips the padding lane; d = 4..16 a general one (D4 float4s a point,
+//    d4 of them live, all four lanes of each), off the main path: a row a
+//    thread, widths 8, 16 and 32 only, so fewer instances to build.
+//  * The wide tile (B > 64): 128 x 128, 3xTF32 on the tensor cores, below.
 //  * The wide tile's product, 3xTF32 (CUTLASS's "fast FP32"): a float32
 //    x splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is
 //    exact), and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, three m16n8k8
@@ -76,7 +109,11 @@
 //    t = lane % 4, then hit distinct banks. 64-point tiles in two stages
 //    (200 KB of dynamic shared memory, one block an SM): while a tile is
 //    multiplied, the next tile's V copy is in flight and its Gram tile is
-//    built after the products; one barrier a tile.
+//    built after the products; one barrier a tile. Every Gram entry a
+//    thread builds lies in one row, so that row's point sits in registers
+//    for the whole block; column points are float4 loads that a warp
+//    shares (L1 broadcast). The build is branch-free (gram_entry), so a
+//    thread's entries overlap their load and SFU latencies.
 //  * The tensor cores' accumulator truncates: an mma adds its products
 //    into its accumulator with round-toward-zero (Fasi, Higham, Mikaitis,
 //    Pranesh 2021, "Numerical behavior of NVIDIA tensor cores"). Chained
@@ -100,10 +137,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ex2_poly.cuh"
+
 namespace {
 
-constexpr int NT = 256;             // threads per block
-constexpr int BK = 32;              // training points per column tile
+constexpr int NT = 256;             // threads per block (the wide tile)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // SFU approximations, flushing subnormals: ex2 is within 2 ulp over its
@@ -171,137 +209,269 @@ __device__ __forceinline__ float gram_entry(const float4 (&xr)[D4],
 }
 
 // ---------------------------------------------------------------------
-// The FFMA tiles (B <= 64)
+// The register tiles (B <= 64)
 
-// Index of a thread's q-th of R register-tile rows (or columns) in a tile
-// of extent T, t the thread's index along it. R <= 4: R adjacent entries.
-// R = 8: two float4 groups T/2 apart, so that the 16 threads along the
-// tile read 256 contiguous bytes per float4 load (no bank conflicts).
-template <int R, int T>
-__device__ __forceinline__ int tile_idx(int t, int q)
+constexpr int RT = 128;             // threads per block
+constexpr int RK = RT;              // column points per shared tile
+// the issue-slot model of a Gram entry at d <= 3 (see the note above):
+// its build (3 FADD, FMUL, 2 FFMA, MUFU.SQRT, MUFU.EX2) and the extra
+// slots of an exponential on the polynomial (ex2_poly.cuh, ~10 in all)
+constexpr int BUILD_SLOTS = 8;
+constexpr int POLY_EXTRA = 9;
+
+// shared loads of a V row per column: float4s, or scalars below 4 wide
+__host__ __device__ constexpr int v_loads(int w)
 {
-    if constexpr (R <= 4) return t * R + q;
-    else return (q / 4) * (T / 2) + t * 4 + q % 4;
+    return w < 4 ? w : (w + 3) / 4;
 }
 
-template <int R, int T>
-__device__ __forceinline__ void load_frag(float (&dst)[R], const float* row,
-                                          int t)
+// of every 8 columns, how many take the polynomial: the p that gives the
+// least of max(MUFU clocks, issue clocks) per 8 entries, both counted in
+// 1/128 of an SM clock (a MUFU operation 8, an issue slot 1) and scaled
+// by rpt so that the shared loads' share stays whole; ties go to fewer
+__host__ __device__ constexpr int poly_of_8(int w, int rpt)
 {
-    if constexpr (R % 4 == 0) {
-        // 16-byte aligned: ks/vs rows are, and tile_idx(t, 4g) % 4 == 0
+    int best = 0, best_cost = 0;
+    for (int p = 0; p <= 8; ++p) {
+        const int mufu = rpt * (16 - p) * 8;
+        const int issue = rpt * (8 * (BUILD_SLOTS + w) + p * POLY_EXTRA) +
+                          8 * (1 + v_loads(w));
+        const int cost = mufu > issue ? mufu : issue;
+        if (p == 0 || cost < best_cost) {
+            best = p;
+            best_cost = cost;
+        }
+    }
+    return best;
+}
+
+// the square root on MUFU, flushing subnormals: within ~1 ulp, 0 at 0
+__device__ __forceinline__ float sqrt_approx(float x)
+{
+    float y;
+    asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float4 scaled(float4 p)
+{
+    return make_float4(p.x * LOG2E, p.y * LOG2E, p.z * LOG2E, p.w * LOG2E);
+}
+
+// exp(-dist) from t = dist * log2 e, for the column at position u of its
+// inner-loop step (a constant once the loop is unrolled)
+template <int POLY>
+__device__ __forceinline__ float exp_neg(float t, int u)
+{
+    return POLY * u % 8 < POLY ? gp_ex2::poly(-t) : gp_ex2::mufu(-t);
+}
+
+// acc[r][c] += e[r] * vrow[c] for c < W: vrow is a row of the shared V
+// tile (VP floats, 16-byte aligned where VP % 4 == 0)
+template <int W, int VP, int RPT>
+__device__ __forceinline__ void product(float (&acc)[RPT][W],
+                                        const float (&e)[RPT],
+                                        const float* vrow)
+{
+    if constexpr (VP % 4 == 0) {
 #pragma unroll
-        for (int q = 0; q < R; q += 4) {
-            const float4 f =
-                *reinterpret_cast<const float4*>(row + tile_idx<R, T>(t, q));
-            dst[q] = f.x; dst[q + 1] = f.y; dst[q + 2] = f.z; dst[q + 3] = f.w;
+        for (int c = 0; c < W; c += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(vrow + c);
+            const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (c + i < W) {
+#pragma unroll
+                    for (int r = 0; r < RPT; ++r)
+                        acc[r][c + i] = fmaf(e[r], qv[i], acc[r][c + i]);
+                }
+            }
         }
     } else {
 #pragma unroll
-        for (int q = 0; q < R; ++q) dst[q] = row[tile_idx<R, T>(t, q)];
+        for (int c = 0; c < W; ++c) {
+            const float q = vrow[c];
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) acc[r][c] = fmaf(e[r], q, acc[r][c]);
+        }
     }
 }
 
-// BM rows x BB V-columns per block; each thread owns RM rows x RC columns
-// of the output. D4: the points' float4 count per row, at most.
-template <int BM, int BB, int RM, int RC, int MINB, int D4>
-__global__ void __launch_bounds__(NT, MINB)
-matmat_kernel(const float4* __restrict__ x, const float* __restrict__ v,
-              const float* __restrict__ scal, float* __restrict__ y,
-              int n, int b, int d4)
+// Y rows row0 + tid + r * RT (r < RPT), columns b0 + c (c < W, b0 + c <
+// b) of the block's column group b0 = blockIdx.y * W. STEP columns an
+// unrolled step of the inner loop; MINB blocks an SM, which caps the
+// registers a thread. AHEAD: a tile's loads are issued one tile ahead,
+// into registers, so that they overlap the previous tile's work (the
+// narrow widths, whose registers allow it); else they go straight to
+// shared memory before the tile's work, up to 24 in flight (32 spill at
+// the wider widths' cap). D4 = 1: d <= 3, one float4 a point whose
+// fourth lane is skipped; D4 = 4: any d <= 16, d4 float4s a point live
+template <int W, int RPT, int STEP, int MINB, bool AHEAD, int D4>
+__global__ void __launch_bounds__(RT, MINB)
+matmat_reg_kernel(const float4* __restrict__ x, const float* __restrict__ v,
+                  const float* __restrict__ scal, float* __restrict__ y,
+                  int n, int b, int d4)
 {
-    constexpr int TC = BB / RC;             // threads along V columns
-    static_assert((BM / RM) * TC == NT, "thread layout must cover NT");
-    static_assert(RM <= 4 || (RM == 8 && BM == 16 * 8),
-                  "8-row fragments assume 16 threads along the rows");
-    static_assert(RC <= 4 || (RC == 8 && BB == 16 * 8),
-                  "8-column fragments assume 16 threads along V");
-    static_assert(NT % BM == 0, "a thread's Gram entries share one row");
-    constexpr int CS = NT / BM;             // column step between them
-    constexpr int E = BK / CS;              // Gram entries per thread
-    constexpr int VE = BK * BB / NT;        // V values per thread
-    static_assert(VE * NT == BK * BB, "V tile must split evenly");
+    constexpr int VP = W < 4 ? W : (W + 3) / 4 * 4;   // floats a V row
+    constexpr int POLY = poly_of_8(W, RPT);
+    static_assert(RK % STEP == 0, "whole steps a tile");
+    static_assert(POLY == 0 || STEP % 8 == 0, "the split's period is 8");
 
-    __shared__ __align__(16) float ks[BK][BM];     // Gram tile, transposed
-    __shared__ __align__(16) float vs[BK][BB];     // V tile
+    __shared__ __align__(16) float4 xs[D4][RK];
+    __shared__ __align__(16) float vs[RK][VP];
 
     const int tid = threadIdx.x;
-    const int ty = tid / TC;
-    const int tx = tid % TC;
-    const int row0 = blockIdx.x * BM;
-    const int b0 = blockIdx.y * BB;
-    const float s2 = scal[0];
+    const int row0 = blockIdx.x * (RT * RPT);
+    const int b0 = blockIdx.y * W;
 
-    // the row of this thread's Gram entries, and its point
-    const int r = tid % BM;
-    const int gi = row0 + r;
-    float4 xr[D4];
-    load_point(xr, x, gi, n, d4);
-
-    float acc[RM][RC];
+    float4 xr[RPT][D4];
+    float acc[RPT][W];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int r = 0; r < RPT; ++r) {
+        const int gi = row0 + tid + r * RT;
 #pragma unroll
-        for (int c = 0; c < RC; ++c) acc[i][c] = 0.0f;
-
-    for (int col0 = 0; col0 < n; col0 += BK) {
-        // (1) V tile: value e = tid + q * NT is (row e / BB, column e % BB)
+        for (int j = 0; j < D4; ++j)
+            xr[r][j] = (gi < n && j < d4) ? scaled(x[(size_t)gi * d4 + j])
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int q = 0; q < VE; ++q) {
-            const int e = tid + q * NT;
-            const int gj = col0 + e / BB, gb = b0 + e % BB;
-            vs[e / BB][e % BB] =
-                (gj < n && gb < b) ? v[(size_t)gj * b + gb] : 0.0f;
-        }
-        // (2) Gram tile: this thread's entries are (r, tid / BM + q * CS)
-#pragma unroll
-        for (int q = 0; q < E; ++q) {
-            const int c = tid / BM + q * CS;
-            ks[c][r] = gram_entry(xr, x, gi, col0 + c, n, d4, s2);
-        }
-        __syncthreads();
-        // (3) acc += Gram tile x V tile, in FP32 FFMA
-#pragma unroll 4
-        for (int k = 0; k < BK; ++k) {
-            float a[RM], w[RC];
-            load_frag<RM, BM>(a, ks[k], ty);
-            load_frag<RC, BB>(w, vs[k], tx);
-#pragma unroll
-            for (int i = 0; i < RM; ++i)
-#pragma unroll
-                for (int c = 0; c < RC; ++c)
-                    acc[i][c] = fmaf(a[i], w[c], acc[i][c]);
-        }
-        __syncthreads();            // ks/vs are rewritten by the next tile
+        for (int c = 0; c < W; ++c) acc[r][c] = 0.0f;
     }
 
+    // the tile at col0: this thread's column point col0 + tid, and its V
+    // value q: e = tid + q * RT, (row col0 + e / W, column b0 + e % W).
+    // Zeros past n and past b
+    auto point = [&](int col0, int j) {
+        const int gj = col0 + tid;
+        return (gj < n && j < d4) ? x[(size_t)gj * d4 + j]
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    auto value = [&](int col0, int q) {
+        const int e = tid + q * RT;
+        const int jr = col0 + e / W, c = b0 + e % W;
+        return (jr < n && c < b) ? v[(size_t)jr * b + c] : 0.0f;
+    };
+    float4 pn[D4];
+    float vn[AHEAD ? W : 1];
+    auto fetch = [&](int col0) {
+        if constexpr (AHEAD) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-        const int row = row0 + tile_idx<RM, BM>(ty, i);
-        if (row >= n) continue;
-        float* yrow = y + (size_t)row * b;
+            for (int j = 0; j < D4; ++j) pn[j] = point(col0, j);
 #pragma unroll
-        for (int c = 0; c < RC; ++c) {
-            const int gb = b0 + tile_idx<RC, BB>(tx, c);
-            if (gb < b) yrow[gb] = acc[i][c];
+            for (int q = 0; q < W; ++q) vn[q] = value(col0, q);
         }
+    };
+    if constexpr (AHEAD) fetch(0);
+
+    for (int col0 = 0; col0 < n; col0 += RK) {
+        // the tile into shared memory, the points scaled by log2 e
+#pragma unroll
+        for (int j = 0; j < D4; ++j)
+            xs[j][tid] = scaled(AHEAD ? pn[j] : point(col0, j));
+#pragma unroll (W <= 24 ? W : 16)
+        for (int q = 0; q < W; ++q) {
+            const int e = tid + q * RT;
+            vs[e / W][e % W] = AHEAD ? vn[q] : value(col0, q);
+        }
+        __syncthreads();
+        if constexpr (AHEAD) {
+            if (col0 + RK < n) fetch(col0 + RK);
+        }
+#pragma unroll 1
+        for (int k0 = 0; k0 < RK; k0 += STEP) {
+#pragma unroll
+            for (int u = 0; u < STEP; ++u) {
+                float4 p[D4];
+#pragma unroll
+                for (int j = 0; j < D4; ++j) p[j] = xs[j][k0 + u];
+                float e[RPT];
+#pragma unroll
+                for (int r = 0; r < RPT; ++r) {
+                    float d2;
+                    if constexpr (D4 == 1) {
+                        float t = xr[r][0].x - p[0].x;
+                        d2 = t * t;
+                        t = xr[r][0].y - p[0].y;
+                        d2 = fmaf(t, t, d2);
+                        t = xr[r][0].z - p[0].z;
+                        d2 = fmaf(t, t, d2);
+                    } else {
+                        d2 = 0.0f;
+#pragma unroll
+                        for (int j = 0; j < D4; ++j)
+                            if (j < d4) d2 = sq4(xr[r][j], p[j], d2);
+                    }
+                    e[r] = exp_neg<POLY>(sqrt_approx(d2), u);
+                }
+                product<W, VP, RPT>(acc, e, vs[k0 + u]);
+            }
+        }
+        __syncthreads();            // xs and vs are rewritten next
+    }
+
+    const float s2 = scal[0];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+        const int gi = row0 + tid + r * RT;
+        if (gi >= n) continue;
+        float* yrow = y + (size_t)gi * b + b0;
+#pragma unroll
+        for (int c = 0; c < W; ++c)
+            if (b0 + c < b) yrow[c] = s2 * acc[r][c];
     }
 }
 
-template <int BM, int BB, int RM, int RC, int MINB>
-cudaError_t launch(const float4* x, const float* v, const float* scal,
-                   float* y, int n, int b, int d4, cudaStream_t stream)
+// The d <= 3 kernel of width W in its shape (matmat_reg_kernel), over
+// ceil(b / W) column groups
+template <int W, int RPT, int STEP, int MINB, bool AHEAD>
+cudaError_t launch_reg(const float4* x, const float* v, const float* scal,
+                       float* y, int n, int b, cudaStream_t stream)
 {
-    const dim3 grid((n + BM - 1) / BM, (b + BB - 1) / BB);
-    if (grid.y > 65535u) return cudaErrorInvalidValue;
-    // d <= 4 (the flagship's 3-D and rock-type inputs) keeps one float4
-    if (d4 == 1)
-        matmat_kernel<BM, BB, RM, RC, MINB, 1><<<grid, NT, 0, stream>>>(
-            x, v, scal, y, n, b, d4);
-    else
-        matmat_kernel<BM, BB, RM, RC, MINB, 4><<<grid, NT, 0, stream>>>(
-            x, v, scal, y, n, b, d4);
+    const dim3 grid((n + RT * RPT - 1) / (RT * RPT), (b + W - 1) / W);
+    matmat_reg_kernel<W, RPT, STEP, MINB, AHEAD, 1>
+        <<<grid, RT, 0, stream>>>(x, v, scal, y, n, b, 1);
     return cudaGetLastError();
+}
+
+// The general kernel (d = 4..16) of width W: a row a thread, up to 255
+// registers (its points take 16 a row), a column a step
+template <int W>
+cudaError_t launch_general(const float4* x, const float* v,
+                           const float* scal, float* y, int n, int b,
+                           int d4, cudaStream_t stream)
+{
+    const dim3 grid((n + RT - 1) / RT, (b + W - 1) / W);
+    matmat_reg_kernel<W, 1, 1, 2, false, 4><<<grid, RT, 0, stream>>>(
+        x, v, scal, y, n, b, d4);
+    return cudaGetLastError();
+}
+
+// The register tiles of width w (ops/matvec.py REGISTER_WIDTHS) over
+// ceil(b / w) column groups, each width in the shape timed best on an
+// H100 (RPT, STEP, MINB, AHEAD). d = 4..16 run the general kernel at the
+// width of 8, 16 or 32 that holds w (off the main path: fewer instances
+// to build)
+cudaError_t launch_register(int w, const float4* x, const float* v,
+                            const float* scal, float* y, int n, int b,
+                            int dp, int d, cudaStream_t s)
+{
+    if (d > 3) {
+        const int d4 = dp / 4;
+        if (w <= 8) return launch_general<8>(x, v, scal, y, n, b, d4, s);
+        if (w <= 16) return launch_general<16>(x, v, scal, y, n, b, d4, s);
+        return launch_general<32>(x, v, scal, y, n, b, d4, s);
+    }
+    switch (w) {
+    case 1: return launch_reg<1, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 2: return launch_reg<2, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 4: return launch_reg<4, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 8: return launch_reg<8, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 9: return launch_reg<9, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 12: return launch_reg<12, 2, 8, 4, true>(x, v, scal, y, n, b, s);
+    case 16: return launch_reg<16, 2, 8, 4, false>(x, v, scal, y, n, b, s);
+    case 24: return launch_reg<24, 2, 4, 3, false>(x, v, scal, y, n, b, s);
+    case 32: return launch_reg<32, 2, 4, 3, false>(x, v, scal, y, n, b, s);
+    default: return cudaErrorInvalidValue;
+    }
 }
 
 // ---------------------------------------------------------------------
@@ -530,13 +700,18 @@ cudaError_t launch_tc(const float4* x, const float* v, const float* scal,
 
 extern "C" {
 
-// x (n, dp) with dp a multiple of 4, at most 16, 16-byte aligned;
-// v (n, b); scal (1,) = [s2]; y (n, b): float32, contiguous, row-major,
-// on `device`. Returns a cudaError_t code (0 on success).
+// x (n, dp) with d features zero-padded to dp, a multiple of 4, at most
+// 16, 16-byte aligned; v (n, b); scal (1,) = [s2]; y (n, b): float32,
+// contiguous, row-major, on `device`. w: the register tiles' width (one
+// of REGISTER_WIDTHS; ceil(b / w) column groups), or 0 for the wide tile.
+// Returns a cudaError_t code (0 on success).
 int gp_matmat_f32(const void* x, const void* v, const void* scal, void* y,
-                  int n, int b, int dp, int device, void* stream)
+                  int n, int b, int dp, int d, int w, int device,
+                  void* stream)
 {
-    if (n <= 0 || b <= 0 || dp <= 0 || dp % 4 != 0 || dp > 16)
+    if (n <= 0 || b <= 0 || dp <= 0 || dp % 4 != 0 || dp > 16 || d <= 0 ||
+        d > dp || (d + 3) / 4 * 4 != dp || w < 0 ||
+        (w > 0 && (b + w - 1) / w > 65535))
         return (int)cudaErrorInvalidValue;
     // this library links its own CUDA runtime, whose current device is
     // separate from the caller's: select the tensors' device explicitly
@@ -548,12 +723,8 @@ int gp_matmat_f32(const void* x, const void* v, const void* scal, void* y,
     float* yf = (float*)y;
     cudaStream_t s = (cudaStream_t)stream;
     const int d4 = dp / 4;
-    if (b <= 8)
-        err = launch<128, 8, 1, 4, 3>(xf, vf, sf, yf, n, b, d4, s);
-    else if (b <= 16)
-        err = launch<128, 16, 2, 4, 4>(xf, vf, sf, yf, n, b, d4, s);
-    else if (b <= 64)
-        err = launch<128, 64, 8, 4, 2>(xf, vf, sf, yf, n, b, d4, s);
+    if (w > 0)
+        err = launch_register(w, xf, vf, sf, yf, n, b, dp, d, s);
     else if (d4 == 1)
         err = launch_tc<1>(xf, vf, sf, yf, n, b, d4, s);
     else

@@ -65,9 +65,9 @@ def _declare(lib) -> None:
         # xi, xj, scal, out, batch, n, m, d, with_diag, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-    # x, v, scal, y, n, b, d, device, stream
+    # x, v, scal, y, n, b, dp, d, width, device, stream
     lib.gp_matmat_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                  ptr]
+                                  i32, i32, ptr]
     lib.gp_matmat_f32.restype = i32
     # x, v, scal, partial, y, n, dp, d, slab_w, slabs, device, stream
     lib.gp_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

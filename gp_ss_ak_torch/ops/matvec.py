@@ -12,15 +12,27 @@ tensors:
 
   streamed_matmat  K3, csrc/matmat.cu (replaces the Pallas
                    gp_ss_ak_tpu/ops/matvec.py::_matmat_kernel): B columns
-                   per pass; count `launches`. The kernel picks its tile
-                   by B: FP32 FFMA tiles 8, 16 and 64 columns wide for
-                   B <= 64, where the Gram build sets the pace, and past
-                   that a 128-column tile whose product runs on the
-                   tensor cores in 3xTF32 (each operand split into two
-                   TF32 parts, each k-step's partial sums added into
+                   per pass; count `launches`, and per tile route
+                   `route_launches`. The wrapper picks the tile from B
+                   (`matmat_route`). B <= 64 runs the register tiles
+                   (K2's design widened to B columns): each thread builds
+                   the Gram entries of its rows in registers and
+                   multiplies each straight into its rows' float32
+                   accumulators by FFMA, V broadcast from shared memory,
+                   in one column group of the narrowest of
+                   REGISTER_WIDTHS that holds B, or past 32 in two; so
+                   the main path's B = 1, 9, 32 and 64 mask no column.
+                   Its bound is the FP32 pipe: ~8 issue slots to build an
+                   entry, B FFMA to use it (at N = 100000 on an H100,
+                   7.8 ms at B = 9 and 19.1 ms at B = 32, ~0.7 of that
+                   floor). Past 64 a 128-column tile whose product runs
+                   on the tensor cores in 3xTF32 (each operand split into
+                   two TF32 parts, each k-step's partial sums added into
                    float32 accumulators, since the tensor cores'
-                   accumulator truncates). Every tile sums in a fixed
-                   order: two passes give equal bits.
+                   accumulator truncates). Every tile sums each output in
+                   one thread in a fixed order: two passes give equal
+                   bits. It takes the true feature count d, as K2 does
+                   (d <= 3 skips the padding).
   streamed_matvec  K2, csrc/matvec.cu (replaces
                    gp_ss_ak_tpu/ops/matvec.py::_matvec_kernel): one
                    vector per pass; count `matvec_launches`. It takes
@@ -59,6 +71,17 @@ from gp_ss_ak_torch.ops.pairwise import expans_bias_gram
 
 #: number of times `streamed_matmat` has launched the CUDA kernel K3
 launches = 0
+
+#: K3's launches by tile route (`matmat_route`): "register" for B <= 64,
+#: "wide" (the tensor-core tile) past it
+route_launches = {"register": 0, "wide": 0}
+
+#: the widths of K3's register tiles (csrc/matmat.cu launch_register). B
+#: up to the widest runs in the narrowest at least B wide; B up to twice
+#: it in two column groups of the narrowest width at least B / 2. So the
+#: main path's B = 1 (the alpha solve), 9 (whitened CG), 32 (the
+#: segmented SLQ) and 64 (the fit's SLQ) mask no column
+REGISTER_WIDTHS = (1, 2, 4, 8, 9, 12, 16, 24, 32)
 
 #: number of times `streamed_matvec` has launched the CUDA kernel K2
 matvec_launches = 0
@@ -125,8 +148,21 @@ def _bias_noise(Y, bias, sn2, V):
     return Y + bias * torch.sum(V, dim=0, keepdim=True) + sn2 * V
 
 
-def _launch(X: torch.Tensor, scal: torch.Tensor,
-            V: torch.Tensor) -> torch.Tensor:
+def matmat_route(b: int):
+    """(route, width) of K3's launch for B = b columns: ("register", w)
+    for b up to twice the widest register tile, w the narrowest of
+    REGISTER_WIDTHS that holds b in one column group (or, past the
+    widest, half of b in each of two), else ("wide", 0), the tensor-core
+    tile (128 columns a block, any b)."""
+    widest = REGISTER_WIDTHS[-1]
+    if b > 2 * widest:
+        return "wide", 0
+    per_group = b if b <= widest else -(-b // 2)
+    return "register", next(w for w in REGISTER_WIDTHS if w >= per_group)
+
+
+def _launch(X: torch.Tensor, scal: torch.Tensor, V: torch.Tensor,
+            d: int) -> torch.Tensor:
     global launches
     for name, t in (("Xm", X), ("scal", scal), ("V", V)):
         if t.dtype != torch.float32:
@@ -142,39 +178,45 @@ def _launch(X: torch.Tensor, scal: torch.Tensor,
                          f"got {tuple(X.shape)} and {tuple(V.shape)}")
     if scal.numel() != 1:
         raise ValueError("streamed_matmat: scal must be [sigma^2]")
-    n, d = X.shape
+    n, dp = X.shape
     b = V.shape[1]
-    if d % 4 or d > MAX_FEATURES or X.data_ptr() % 16:
+    if dp % 4 or dp > MAX_FEATURES or X.data_ptr() % 16:
         raise ValueError("streamed_matmat: Xm must come from "
                          "operator_arrays (features padded to a multiple "
                          f"of 4, at most {MAX_FEATURES}, 16-byte aligned)")
-    if max(n * d, n * b) >= 2 ** 31:
+    if max(n * dp, n * b) >= 2 ** 31:
         raise ValueError("streamed_matmat: sizes must fit in int32")
     Y = torch.empty_like(V)
     if n == 0 or b == 0:
         return Y
+    route, width = matmat_route(b)
     lib = _build.load()
     stream = torch.cuda.current_stream(V.device).cuda_stream
     code = lib.gp_matmat_f32(X.data_ptr(), V.data_ptr(), scal.data_ptr(),
-                             Y.data_ptr(), n, b, d, V.device.index, stream)
+                             Y.data_ptr(), n, b, dp, d, width,
+                             V.device.index, stream)
     _build.check(lib, code, "matmat kernel launch")
     launches += 1
+    route_launches[route] += 1
     return Y
 
 
 def streamed_matmat(Xm: torch.Tensor, scal: torch.Tensor, bias, sn2,
-                    V: torch.Tensor) -> torch.Tensor:
+                    V: torch.Tensor, d=None) -> torch.Tensor:
     """A @ V for V (n, B), all B columns in one pass over the Gram
     tiles. Xm and scal come from `operator_arrays` (the plain version
-    takes any (n, d) points); bias and sn2 are
-    Python floats or 0-d tensors. CUDA tensors launch the CUDA kernel
+    takes any (n, d) points); bias and sn2 are Python floats or 0-d
+    tensors; d is the points' true feature count before padding
+    (`feature_count`; Xm's width if None), which the register tiles
+    need to skip the padding. CUDA tensors launch the CUDA kernel
     (float32, contiguous), CPU tensors run the plain version."""
+    d = feature_count(Xm, d)
     if V.device.type == "cpu":
         return streamed_matmat_plain(Xm, scal, bias, sn2, V)
     if V.device.type != "cuda":
         raise ValueError(f"streamed_matmat: no kernel for device "
                          f"{V.device}")
-    return _bias_noise(_launch(Xm, scal, V), bias, sn2, V)
+    return _bias_noise(_launch(Xm, scal, V, d), bias, sn2, V)
 
 
 def matvec_slabs(n: int, sms: int):
@@ -213,9 +255,9 @@ def feature_count(Xm: torch.Tensor, d=None) -> int:
     if d is None:
         return dp
     if isinstance(d, bool) or not isinstance(d, int):
-        raise TypeError(f"streamed_matvec: d must be an int, got {d!r}")
+        raise TypeError(f"feature_count: d must be an int, got {d!r}")
     if not 1 <= d <= dp <= -(-d // 4) * 4:
-        raise ValueError(f"streamed_matvec: d = {d} features cannot be "
+        raise ValueError(f"feature_count: d = {d} features cannot be "
                          f"padded to Xm's {dp}")
     return d
 
@@ -308,7 +350,7 @@ class MatvecOperator:
     def matmat(self, V: torch.Tensor) -> torch.Tensor:
         """A @ V for V (n, B): all B columns ride one pass."""
         return streamed_matmat(self.X, self.scal, self.bias, self.sn2,
-                               V.to(torch.float32).contiguous())
+                               V.to(torch.float32).contiguous(), self.d)
 
 
 #: K entries built per K1 launch when K is stored in a narrower type

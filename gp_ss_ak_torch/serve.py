@@ -224,9 +224,10 @@ class IterativePredictor:
         self.s2 = sigma * sigma
         self._Xm = Xm.contiguous()
         Xop, scal = operator_arrays(Xm, sigma)
+        d = Xm.shape[1]
 
         def matmat(V):
-            return streamed_matmat(Xop, scal, bias, sn2, V)
+            return streamed_matmat(Xop, scal, bias, sn2, V, d)
 
         # whitened-CG solve route (f32-stable at the flagship
         # conditioning); rank 0 takes plain batched CG

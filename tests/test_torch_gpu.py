@@ -163,22 +163,30 @@ def _matmat_case(n, b, d, cuda, seed):
     return Xk, scal, V
 
 
-@pytest.mark.parametrize("n,b,d", [(1, 1, 3), (37, 1, 3), (130, 7, 4),
-                                   (1000, 8, 3), (1000, 9, 3), (257, 64, 5),
-                                   (4097, 65, 2), (300, 130, 3),
-                                   # the edges of the 16-wide, middle and
-                                   # tensor-core tiles, at ragged n
-                                   (130, 16, 3), (4097, 16, 3), (130, 17, 4),
-                                   (4097, 17, 3), (130, 64, 3), (4097, 64, 3),
-                                   (130, 65, 3), (130, 128, 4), (4097, 128, 3),
-                                   (130, 129, 3), (4097, 129, 5),
-                                   (130, 1024, 3), (4097, 1024, 3)])
+#: the register tiles' widths around the main path's B = 9 and 32 and
+#: the column groups past 32, at ragged n, for d <= 3 and the general
+#: kernel (d = 4, 7)
+REGISTER_CASES = [(n, b, d) for b in (9, 12, 16, 17, 31, 32, 33, 63, 64)
+                  for n in (37, 257, 4097) for d in (1, 2, 3, 4, 7)]
+
+
+@pytest.mark.parametrize("n,b,d", list(dict.fromkeys(
+    [(1, 1, 3), (37, 1, 3), (130, 7, 4), (1000, 8, 3), (1000, 9, 3),
+     (257, 64, 5), (4097, 65, 2), (300, 130, 3),
+     # the narrow register widths and the tensor-core tile's edges, at
+     # ragged n
+     (130, 2, 3), (130, 3, 2), (4097, 5, 3), (130, 16, 3), (4097, 16, 3),
+     (130, 17, 4), (4097, 17, 3), (130, 64, 3), (4097, 64, 3), (130, 65, 3),
+     (130, 128, 4), (4097, 128, 3), (130, 129, 3), (4097, 129, 5),
+     (130, 1024, 3), (4097, 1024, 3)] + REGISTER_CASES)))
 def test_matmat_kernel_matches_plain(cuda, n, b, d):
     Xk, scal, V = _matmat_case(n, b, d, cuda, seed=n + b)
-    before = matvec.launches
-    Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V)
+    route = matvec.matmat_route(b)[0]
+    before, routed = matvec.launches, matvec.route_launches[route]
+    Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, d)
     torch.cuda.synchronize()
     assert matvec.launches == before + 1
+    assert matvec.route_launches[route] == routed + 1
     assert Y.dtype == torch.float32 and tuple(Y.shape) == (n, b)
     ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), BIAS,
                                        SN2, V.double())
@@ -194,38 +202,73 @@ def test_matmat_kernel_is_repeatable(cuda):
                        matvec.streamed_matmat(Xk, scal, BIAS, SN2, V))
 
 
-@pytest.mark.parametrize("b", [9, 257, 1024])
-def test_matmat_tiles_are_repeatable(cuda, b):
-    # the 16-wide FFMA tile (B = 9) and the tensor-core tile: equal bits
-    Xk, scal, V = _matmat_case(2049, b, 3, cuda, seed=b)
-    assert torch.equal(matvec.streamed_matmat(Xk, scal, BIAS, SN2, V),
-                       matvec.streamed_matmat(Xk, scal, BIAS, SN2, V))
+@pytest.mark.parametrize("b", [1, 2, 8, 9, 12, 16, 24, 32, 33, 64, 257,
+                               1024])
+@pytest.mark.parametrize("d", [3, 7])
+def test_matmat_tiles_are_repeatable(cuda, b, d):
+    # every register width (with its column groups past 32) and the
+    # tensor-core tile: equal bits
+    Xk, scal, V = _matmat_case(2049, b, d, cuda, seed=b)
+    assert torch.equal(matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, d),
+                       matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, d))
 
 
-def test_matmat_16_wide_tile_equals_the_middle_tile(cuda):
-    # both FFMA tiles sum each output over k in one order from the same
-    # Gram values: B = 9 equals the same V zero-padded to 64 columns. No
-    # bias or noise: torch's column sums of (n, 9) and (n, 64) tensors
-    # need not agree in bits
-    Xk, scal, V = _matmat_case(3001, 9, 3, cuda, seed=10)
+@pytest.mark.parametrize("b", [8, 9, 12, 16, 17, 31, 32, 33, 63])
+def test_matmat_16_wide_tile_equals_the_middle_tile(cuda, b):
+    # column b's bits do not depend on B: every register width from 8 on
+    # (one ex2 split, none of it on the polynomial) sums each output over
+    # j in one order from the same Gram values, so B columns equal the
+    # same V zero-padded to 64 (two groups of 32). No bias or noise:
+    # torch's column sums of (n, b) and (n, 64) tensors need not agree in
+    # bits
+    Xk, scal, V = _matmat_case(3001, b, 3, cuda, seed=10)
     V64 = torch.zeros(3001, 64, device=cuda)
-    V64[:, :9] = V
-    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V)
-    Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64)
-    assert torch.equal(Y, Y64[:, :9])
+    V64[:, :b] = V
+    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V, 3)
+    Y64 = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, V64, 3)
+    assert torch.equal(Y, Y64[:, :b])
 
 
-def test_matmat_diagonal_is_exactly_s2(cuda):
-    # unit columns pick out Gram columns; at i == j the kernel writes s2
-    # itself, not s2 * exp(-sqrt(0 + round-off))
+@pytest.mark.parametrize("b", [1, 5, 8, 9, 16, 32, 64])
+@pytest.mark.parametrize("d", [3, 4])
+def test_matmat_diagonal_is_exactly_s2(cuda, b, d):
+    # unit columns pick out Gram columns; at i == j the kernel gives s2
+    # itself (d2 = 0 exactly, so exp(-0) = 1 in both classes of its ex2
+    # split), not s2 * exp(-sqrt(round-off))
     n = 300
-    Xk, scal, _ = _matmat_case(n, 1, 3, cuda, seed=4)
-    cols = torch.tensor([0, 1, 127, 128, 299], device=cuda)
-    E = torch.zeros(n, cols.numel(), device=cuda)
-    E[cols, torch.arange(cols.numel(), device=cuda)] = 1.0
-    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, E)
-    assert torch.equal(Y[cols, torch.arange(cols.numel(), device=cuda)],
-                       scal.expand(cols.numel()))
+    Xk, scal, _ = _matmat_case(n, 1, d, cuda, seed=4)
+    rows = torch.tensor([0, 1, 127, 128, 299], device=cuda)[
+        torch.arange(b, device=cuda) % 5]
+    cols = torch.arange(b, device=cuda)
+    E = torch.zeros(n, b, device=cuda)
+    E[rows, cols] = 1.0
+    Y = matvec.streamed_matmat(Xk, scal, 0.0, 0.0, E, d)
+    assert torch.equal(Y[rows, cols], scal.expand(b))
+
+
+def _block_shares(Y, ref, V, rows=32):
+    """Each `rows`-row block's worst column error against its plain
+    version in float64, as a share of the card tests' K3 tolerance."""
+    tol = (TOL_K3 * SCALE * V.double().abs().sum(0)
+           + 4 * torch.finfo(torch.float32).eps * ref.abs().max(0).values)
+    err = ((Y.double() - ref).abs() / tol).amax(dim=1)
+    return torch.stack([blk.max() for blk in err.split(rows)])
+
+
+def test_matmat_every_32_row_block_matches_plain(cuda):
+    # SLQ's products (B = 32) block by block: every 32-row block of K3's
+    # output at N = 4097 within tolerance of the plain version in
+    # float64, at a tolerance that a zeroed block fails (planted here in
+    # every block at once: the blocks are judged apart)
+    n, b = 4097, 32
+    Xk, scal, V = _matmat_case(n, b, 3, cuda, seed=21)
+    Y = matvec.streamed_matmat(Xk, scal, BIAS, SN2, V, 3)
+    ref = matvec.streamed_matmat_plain(Xk.double(), scal.double(), BIAS,
+                                       SN2, V.double())
+    shares = _block_shares(Y, ref, V)
+    assert shares.numel() == -(-n // 32)
+    assert bool((shares <= 1.0).all())
+    assert bool((_block_shares(torch.zeros_like(Y), ref, V) > 1.0).all())
 
 
 def test_matmat_diagonal_on_the_tensor_cores(cuda):
@@ -890,9 +933,12 @@ def test_segmented_on_cuda_matches_cpu(cuda):
     cold, warm = (make_segmented_value_and_grad(
         model, X, y, Z_logdet=Zl, Z_trace=Zt, cg_tol=1e-5, warm_start=w)
         for w in (False, True))
-    before = matvec.launches
+    before, reg = matvec.launches, matvec.route_launches["register"]
     vc, gc = cold(x * (1.0 + 1e-3))
     assert matvec.launches - before == cold.last_cg_iters + 16
+    # CG (B = 9) and SLQ (B = 32) ran on the register tiles
+    assert matvec.route_launches["register"] - reg == \
+        matvec.launches - before
     warm(x)
     before = matvec.launches
     vw, gw = warm(x * (1.0 + 1e-3))

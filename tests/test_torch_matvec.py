@@ -10,6 +10,8 @@ the rounding of an n-term sum. Both are also held to the JAX test's own
 2e-4 against a float64 dense A @ V.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +110,78 @@ def test_rejects_other_devices():
     with pytest.raises(ValueError):
         matvec.streamed_matmat(X_t.to("meta"), scal.to("meta"), 0.0, 0.0,
                                torch.zeros(4, 1, device="meta"))
+
+
+# --- K3's tile routes: the wrapper's choice from B, pure Python ---
+
+@pytest.mark.parametrize("b,route,width", [
+    (1, "register", 1), (2, "register", 2), (3, "register", 4),
+    (5, "register", 8), (8, "register", 8), (9, "register", 9),
+    (10, "register", 12), (13, "register", 16), (17, "register", 24),
+    (25, "register", 32), (32, "register", 32), (33, "register", 24),
+    (48, "register", 24), (49, "register", 32), (64, "register", 32),
+    (65, "wide", 0), (256, "wide", 0), (1024, "wide", 0)])
+def test_matmat_route_by_width(b, route, width):
+    assert matvec.matmat_route(b) == (route, width)
+
+
+def test_register_routes_hold_b_in_the_narrowest_tiles():
+    # every B <= 64 runs in one or two column groups of a register width;
+    # a narrower width would not hold it in as many groups; the main
+    # path's B = 1, 9, 32 and 64 mask no column
+    widths = matvec.REGISTER_WIDTHS
+    for b in range(1, 65):
+        route, w = matvec.matmat_route(b)
+        groups = -(-b // w)
+        assert route == "register" and w in widths
+        assert groups == (1 if b <= widths[-1] else 2)
+        assert all(-(-b // v) > groups for v in widths if v < w)
+    for b in (1, 9, 32, 64):
+        _, w = matvec.matmat_route(b)
+        assert b % w == 0
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each K3 launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def gp_matmat_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("b", [1, 9, 32, 64, 65, 1024])
+def test_each_launch_counts_once_on_its_route(b, monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(matvec._build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(matvec, "launches", 0)
+    monkeypatch.setattr(matvec, "route_launches",
+                        {"register": 0, "wide": 0})
+    X, scal = matvec.operator_arrays(torch.rand(20, 3), 0.7)
+    V = torch.rand(20, b)
+    route, width = matvec.matmat_route(b)
+    for k in range(1, 4):
+        matvec._launch(X, scal, V, 3)
+        assert matvec.launches == k
+        assert matvec.route_launches == {
+            r: (k if r == route else 0) for r in ("register", "wide")}
+    # each launch is told the register width (0: the wide tile) and the
+    # true feature count beside the padded one
+    n, bb, dp, d, w = lib.calls[-1][4:9]
+    assert (n, bb, dp, d, w) == (20, b, 4, 3, width)
+    assert len(lib.calls) == 3
+
+
+def test_matmat_d_is_checked_before_the_device_dispatch():
+    X, scal = matvec.operator_arrays(torch.rand(6, 3), 0.7)
+    V = torch.ones(6, 2)
+    with pytest.raises(ValueError):
+        matvec.streamed_matmat(X, scal, 0.1, 0.01, V, 5)
+    with pytest.raises(TypeError):
+        matvec.streamed_matmat(X, scal, 0.1, 0.01, V, 3.0)
+    Y = matvec.streamed_matmat(X, scal, 0.1, 0.01, V, 3)
+    assert torch.equal(Y, matvec.streamed_matmat(X, scal, 0.1, 0.01, V))
