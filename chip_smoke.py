@@ -16,14 +16,12 @@ NVIDIA GPU.
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
   2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
-     (csrc/matvec.cu), K3 (csrc/matmat.cu), K4 (csrc/contraction.cu)
-     and the ex2 probe
-     (csrc/ex2_probe.cu) into one library, one nvcc per source; ptxas's
-     register report (no spills in any K3 instance, K2 or the probe), the
-     HMMA count of K3's SASS (cuobjdump), K3's register tiles' issue slots
-     per Gram entry of each inner loop, K2's opcode histograms (no FRND
-     or F2I), the issue slots per Gram entry of its d = 3 inner loop and
-     per exponential of the probe's;
+     (csrc/matvec.cu), K3 (csrc/matmat.cu) and K4 (csrc/contraction.cu)
+     into one library, one nvcc per source; ptxas's register report (no
+     spills in any K3 instance or in K2), the HMMA count of K3's SASS
+     (cuobjdump), K3's register tiles' issue slots per Gram entry of each
+     inner loop, K2's opcode histograms (no FRND or F2I) and the issue
+     slots per Gram entry of its d = 3 inner loop;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
   4. K3 against its plain version in float64, at ragged sizes, at the
@@ -36,13 +34,12 @@ Phases, each of which raises on failure (nothing is caught):
      the wide tile's 65, 256, 1024) and N = 100000 (B = 9, 32) beside the
      bound and the SASS model, the SM clock while the widest runs, and a
      cuBLAS yardstick on a prebuilt K;
-  5. the ex2 probe: 2^x per SM per clock on MUFU and as K2's polynomial
-     on the FP32 pipes; K2 against its plain version in float64 at
-     ragged sizes (d = 2, 3, 4, 5) and at N = 16384, 32768 (the K2
-     path's) and 65536, the same gate and TF32 control, two passes for
-     equal bits, the diagonal exactly s2 in both classes of its ex2
-     split, and its time at those three N beside its bound, the
-     MUFU-only term, the SASS model, K3 at B = 1 and the plain version;
+  5. K2 against its plain version in float64 at ragged sizes (d = 2, 3,
+     4, 5) and at N = 16384, 32768 (the K2 path's) and 65536, the same
+     gate and TF32 control, two passes for equal bits, the diagonal
+     exactly s2 in both classes of its ex2 split, and its time at those
+     three N beside its bound, the MUFU-only term, the SASS model, K3 at
+     B = 1 and the plain version;
      at N = 100000 and 150000 also the gate and K2's time under its slab
      plan beside 16 slabs and beside one wave of slabs, floored;
   5b. K4 (csrc/contraction.cu, the gradient's contraction): its
@@ -189,11 +186,12 @@ unconverged flag for each evaluation, phase 23 requires gemm_bf16's
 failed solve at the case's noise to give a NaN value and gradient, and
 phase 33 requires the CLI's one stderr warning to count exactly the
 evaluations whose residual is above cg_tol.
-Every bound is the largest of three terms (`bound`): bytes, the SFU and
-FP32 work with the ex2 split at its best between MUFU and a polynomial
-on the FP32 pipes ("SFU/FMA", `sfu_fma_ms`; K2's and K3's lines also
-print the MUFU-only term) and the product on the tensor cores at
-float32 accuracy; the line says which term sets it.
+Every bound is the largest of three terms (`bound`, from the benchmark's
+yardstick in port_bench/roofline.py): bytes, the SFU and FP32 work with
+the ex2 split at its best between MUFU and a polynomial on the FP32
+pipes ("SFU/FMA", `sfu_fma_ms`; K2's and K3's lines also print the
+MUFU-only term) and the product on the tensor cores at float32
+accuracy; the line says which term sets it.
 Each counted path runs with the launch counts set to 0 just before it
 and read just after. The line before the last is the JSON kernel report;
 the last line is {"ok": true, "device": {...}}. Exits non-zero, printing
@@ -218,6 +216,20 @@ import time
 import warnings
 
 import numpy as np
+
+# The card's yardstick and the ore body are the benchmark's (port_bench,
+# the one copy). POLY_EX2_SLOTS = 10 there: csrc/ex2_poly.cuh's ex2 on the
+# FP32 pipes is 10 issue slots in its SASS (1 FMNMX, 3 FADD, 5 FFMA, 1
+# LEA; no FRND or F2I, which issue at MUFU's quarter rate), and an
+# integer slot costs as much as an FP32 one (128 instructions an SM a
+# clock, PEAK_FP32_FLOPS / 2 a second). A probe built for the purpose
+# read 12.37-12.44 of them per SM per clock on an H100 80GB HBM3 at
+# 700 W, 10.3 slots each, against MUFU's 15.88-16.11.
+from port_bench.data import ore_body
+from port_bench.roofline import (PEAK_BYTES_S, PEAK_FP32_FLOPS,
+                                 PEAK_TF32_FLOPS, POLY_EX2_SLOTS,
+                                 SFU_PER_SM_CLOCK, bound, card_rates,
+                                 gram_work, matmat_work, sfu_fma_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -261,24 +273,6 @@ MODE_CG_TOL = 1e-6              # that test's CG tolerance
 # contraction and with K4 (whose own error is ~4e-7 of float64) alike:
 # the two modes' float32 operators, so the limit sits ~6x above it
 MODE_XM_REL = 1e-2
-# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
-# HBM bytes/s, FP32 outside the tensor cores and dense TF32, flop/s; the
-# SFU's rsqrt and ex2 per SM per clock (sm_90), its rate set by the
-# card's SM count and maximum SM clock (card_rates)
-PEAK_BYTES_S, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
-SFU_PER_SM_CLOCK = 16
-# an ex2 computed on the FP32 pipes instead of MUFU, at MUFU's float32
-# accuracy (gp_ss_ak_torch/csrc/ex2_poly.cuh, 1.6 ulp): the clamp at -126
-# (1 FMNMX), x = j + f with j rounded by adding and subtracting 1.5 * 2^23
-# and f = x - j (3 FADD), 2^f by a degree-5 polynomial in Horner form (5
-# FFMA), 2^j added to the exponent bits (1 LEA). 10 issue slots in its
-# SASS (phase 2; no FRND or F2I, which issue at MUFU's quarter rate), and
-# an integer slot costs as much as an FP32 one, since an SM dispatches
-# 128 instructions a clock to all its pipes together, which is
-# PEAK_FP32_FLOPS / 2 a second. The ex2 probe (phase 5) measured 12.37 of
-# them per SM per clock on an H100 80GB HBM3 at 700 W, 10.3 slots each,
-# and MUFU 15.99
-POLY_EX2_SLOTS = 10
 ITER_MEAN_TOL = 1e-2            # iterative vs dense f64 means, x std(y_s)
 ITER_VAR_RTOL = 1e-2            # and variances (noise included)
 MSE_MAX = 0.2                   # test MSE must stay below MSE_MAX * var(y)
@@ -479,66 +473,6 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-@functools.cache
-def card_rates():
-    """{"sms": SM count, "clock_hz": maximum SM clock} of card 0, for the
-    SFU term of `bound`."""
-    import torch
-
-    mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
-            "clock_hz": float(mhz) * 1e6}
-
-
-def sfu_fma_ms(work, sms: int, clock_hz: float):
-    """(MUFU-only ms, balanced ms) of the SFU and FP32 work of `work`
-    (see `bound`), whose SFU operations are one rsqrt and one ex2 an
-    entry, as in each of K1, K2 and K3.
-
-    MUFU-only prices every rsqrt and ex2 at MUFU's 16 per SM per clock,
-    beside the FP32 work on its pipes: a floor only for a kernel that
-    computes both on MUFU. Balanced lets x of the ex2 stay on MUFU and
-    computes the rest as a polynomial on the FP32 pipes (POLY_EX2_SLOTS
-    issue slots each, as FlashAttention-4 does), and takes the best x,
-    where the two units finish together (clamped to [0, all ex2]). The
-    FP32 work counts as FMAs (two flops a slot), a floor."""
-    _, fp32, sfu, _ = work
-    mufu = sms * SFU_PER_SM_CLOCK * clock_hz          # operations / s
-    slots = PEAK_FP32_FLOPS / 2.0              # FP32 instructions / s
-    rsqrt = ex2 = sfu / 2.0
-    f = fp32 / 2.0
-    c = POLY_EX2_SLOTS
-    mufu_only = max((rsqrt + ex2) / mufu, f / slots)
-    x = (mufu * (f + c * ex2) - slots * rsqrt) / (slots + c * mufu)
-    x = min(max(x, 0.0), ex2)
-    balanced = max((rsqrt + x) / mufu, (f + c * (ex2 - x)) / slots)
-    return mufu_only * 1e3, balanced * 1e3
-
-
-def bound(work, sms: int, clock_hz: float):
-    """(bound_ms, term): the least time the card could take for `work` =
-    (bytes moved, each input read once and each output written once;
-    FP32 operations outside any product; SFU operations; product
-    operations at float32 accuracy on the tensor cores, three TF32
-    products each), the largest of its three terms, and which term it
-    is: "bytes", "SFU/FMA" or "tensor".
-
-    "SFU/FMA" is `sfu_fma_ms`'s balanced term: the SFU and FP32 work
-    together, with the ex2 split at its best between MUFU and a
-    polynomial on the FP32 pipes. The MUFU-only SFU term stands above
-    the floor of a kernel that moves ex2 onto the FP32 pipes; the K2
-    and K3 lines print both."""
-    nbytes, _, _, tensor = work
-    terms = {"bytes": nbytes / PEAK_BYTES_S,
-             "SFU/FMA": sfu_fma_ms(work, sms, clock_hz)[1] / 1e3,
-             "tensor": tensor / PEAK_TF32_FLOPS}
-    term = max(terms, key=terms.get)
-    return terms[term] * 1e3, term
-
-
 def sfu_shares(work, ms: float) -> str:
     """The kernel's share of both SFU terms of `sfu_fma_ms`, printed."""
     mufu_only, balanced = sfu_fma_ms(work, **card_rates())
@@ -546,15 +480,6 @@ def sfu_shares(work, ms: float) -> str:
             f"{mufu_only / ms:.3f}), balanced with "
             f"{POLY_EX2_SLOTS}-slot polynomial ex2 {balanced:.4f} ms "
             f"(kernel at {balanced / ms:.3f})")
-
-
-def gram_work(n: int, m: int, d: int):
-    """K1's work for n*m Gram entries over d features: the output written
-    once and the points read once; 3d + 2 FP32 operations an entry (d
-    differences and d multiply-adds, 2 each, for the distance, the scale
-    by s2 and the bias add); an rsqrt and an ex2 an entry on the SFU."""
-    return 4.0 * (n * m + (n + m) * d), float(n) * m * (3 * d + 2), \
-        2.0 * n * m, 0.0
 
 
 def matvec_work(n: int, d: int):
@@ -565,16 +490,6 @@ def matvec_work(n: int, d: int):
     priced as three TF32 products."""
     return 4.0 * n * (4 + 2), float(n) * n * (3 * d + 2), 2.0 * n * n, \
         3 * 2.0 * n * n
-
-
-def matmat_work(n: int, d: int, b: int):
-    """K3's work for one pass over the n*n Gram entries against b
-    columns: the points (padded to a float4), V and Y once; 3d + 1 FP32
-    operations an entry outside the product (the distance, the s2
-    scale); two SFU operations an entry; the product 2 n^2 b priced as
-    three TF32 products."""
-    return 4.0 * n * (4 + 2 * b), float(n) * n * (3 * d + 1), \
-        2.0 * n * n, 3 * 2.0 * n * n * b
 
 
 def phase_device():
@@ -684,50 +599,34 @@ def _fmt_classes(c) -> str:
 
 
 def k2_sass_report(sass: str):
-    """Phase 2's reading of K2's and the ex2 probe's SASS: each K2
-    kernel's opcode histogram (none may hold SLOW_OPCODES), the issue
-    slots per Gram entry of K2's d = 3 kernel's inner loop (an entry per
-    MUFU square root), and the slots per exponential of the probe's
-    loop (64 of them an iteration). Returns K2's slots per entry by kind
-    (`issue_classes`)."""
-    funcs = sass_functions(sass)
-    report = {"k2": {}, "ex2": {}}
-    for name, insns in funcs.items():
-        if "matvec" not in name and "ex2_probe" not in name:
+    """Phase 2's reading of K2's SASS: each K2 kernel's opcode histogram
+    (none may hold SLOW_OPCODES) and the issue slots per Gram entry of
+    its d = 3 kernel's inner loop (an entry per MUFU square root).
+    Returns those slots per entry by kind (`issue_classes`)."""
+    report = {}
+    for name, insns in sass_functions(sass).items():
+        if "matvec" not in name:
             continue
         hist = opcode_histogram(insns)
         slow = [op for op in hist if op.split(".")[0] in SLOW_OPCODES]
         _check(not slow, f"{name}: {slow} in its SASS")
-        if "matvec" in name:
-            m = re.search(r"\d(matvec_[a-z]+)(?:ILi(\d+)E)?", name)
-            args = "" if m.group(2) is None else f"<{m.group(2)}>"
-            print(f"build: K2 {m.group(1)}{args} SASS opcodes: {hist}")
-        # the polynomial probe's loop holds no MUFU operation
-        loop = innermost_loop(insns, "FFMA" if "ILb1E" in name else "MUFU")
-        if loop is None:
+        m = re.search(r"\d(matvec_[a-z]+)(?:ILi(\d+)E)?", name)
+        args = "" if m.group(2) is None else f"<{m.group(2)}>"
+        print(f"build: K2 {m.group(1)}{args} SASS opcodes: {hist}")
+        loop = innermost_loop(insns, "MUFU")
+        if loop is None or "matvec_packed" not in name:
             continue
         lhist = opcode_histogram(loop)
-        if "matvec_packed" in name:
-            entries = sum(v for k, v in lhist.items()
-                          if k in ("MUFU.SQRT", "MUFU.RSQ"))
-            c = issue_classes(lhist, entries)
-            report["k2"] = c
-            poly = entries - lhist.get("MUFU.EX2", 0)
-            print(f"build: K2 d<=3, {poly} of {entries} exponentials on "
-                  f"the polynomial: inner loop {len(loop)} instructions, "
-                  f"{entries} Gram entries; issue slots per entry: "
-                  f"{_fmt_classes(c)}; loop opcodes {lhist}")
-        elif "ex2_probe" in name:
-            kind = "poly" if "ILb1E" in name else "mufu"
-            c = issue_classes(lhist, 64)
-            report["ex2"][kind] = c
-            print(f"build: ex2 probe ({kind}): loop of {len(loop)} "
-                  f"instructions for 64 exponentials; issue slots per "
-                  f"ex2: {_fmt_classes(c)}; opcodes {lhist}")
-    _check(bool(report["k2"]) and set(report["ex2"]) == {"mufu", "poly"},
-           f"K2's or the probe's inner loop not found in the SASS: "
-           f"{ {k: sorted(v) for k, v in report.items()} }")
-    return report["k2"]
+        entries = sum(v for k, v in lhist.items()
+                      if k in ("MUFU.SQRT", "MUFU.RSQ"))
+        report = issue_classes(lhist, entries)
+        poly = entries - lhist.get("MUFU.EX2", 0)
+        print(f"build: K2 d<=3, {poly} of {entries} exponentials on "
+              f"the polynomial: inner loop {len(loop)} instructions, "
+              f"{entries} Gram entries; issue slots per entry: "
+              f"{_fmt_classes(report)}; loop opcodes {lhist}")
+    _check(bool(report), "K2's inner loop not found in the SASS")
+    return report
 
 
 def phase_build():
@@ -763,8 +662,8 @@ def phase_build():
           f"{hmma}")
     _check(len(hmma) == len(spills) and min(hmma.values()) > 0,
            "K3's wide tile issues no HMMA")
-    # K2 and the ex2 probe: no spills, no slow opcodes, slots per entry
-    k2_spills = re.findall(r"Function properties for (\S*(?:matvec|ex2_probe)"
+    # K2: no spills, no slow opcodes, slots per entry
+    k2_spills = re.findall(r"Function properties for (\S*matvec"
                            r"\S*)\s+\d+ bytes stack frame, (\d+) bytes "
                            r"spill stores, (\d+) bytes spill loads", log)
     for name, st, ld in k2_spills:
@@ -1119,8 +1018,6 @@ def phase_k3(device, seed: int):
     return report
 
 
-#: the fixed point of x = 2^-x, which every chain of the ex2 probe reaches
-EX2_FIXED_POINT = 0.6411857445049859
 #: K2's timed sizes (d = 3): the dense width, the K2 path's, the
 #: matrix-free path's
 K2_TIMED = (N_TRAIN, N_K2_PATH, N_ITER_TRAIN)
@@ -1170,51 +1067,6 @@ def k2_time_plan(Xk, scal, v, width: int, slabs: int):
     return time_ms(run, warmup=2, iters=10), y
 
 
-def ex2_probe(device, iters: int = 4096):
-    """Phase 5's ex2 probe (csrc/ex2_probe.cu) at full occupancy: 2^x per
-    SM per clock of the card's maximum SM clock, on MUFU and as the
-    polynomial on the FP32 pipes, with the SM clock read while the
-    polynomial runs; every chain must reach 2^-x's fixed point. Returns
-    {"mufu": rate, "poly": rate}."""
-    import torch
-
-    from gp_ss_ak_torch.ops import _build
-
-    lib = _build.load()
-    sms, clock = card_rates()["sms"], card_rates()["clock_hz"]
-    blocks = sms * 8                      # 8 blocks of 256 threads an SM
-    out = torch.empty(blocks * 256, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    count = blocks * 256 * lib.gp_ex2_probe_per_iter() * iters
-
-    def run(poly):
-        _build.check(lib, lib.gp_ex2_probe(out.data_ptr(), poly, iters,
-                                           blocks, device.index, stream),
-                     "ex2 probe launch")
-
-    rates = {}
-    for kind, poly in (("mufu", 0), ("poly", 1)):
-        ms = time_ms(lambda: run(poly), warmup=2, iters=10)
-        rates[kind] = count / (ms * 1e-3) / (sms * clock)
-        err = float((out / 8 - EX2_FIXED_POINT).abs().max())
-        print(f"ex2 probe ({kind}): {count:.4g} exponentials in {ms:.4f} "
-              f"ms = {rates[kind]:.3f} per SM per clock at "
-              f"{clock / 1e6:.0f} MHz ({128 / rates[kind]:.3f} issue slots "
-              f"of 128 per clock each); chains {err:.2e} from 2^-x's fixed "
-              f"point")
-        _check(err < 1e-6, f"ex2 probe ({kind}) missed the fixed point")
-    for _ in range(10):
-        run(1)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    torch.cuda.synchronize()
-    print(f"ex2 probe (poly), read while it runs: SM clock, power draw "
-          f"{smi}; the polynomial runs at {rates['poly'] / rates['mufu']:.3f}"
-          f" of MUFU's rate")
-    return rates
-
-
 def sass_floor_ms(n: int, slots) -> float:
     """The issue-slot model of one K2 pass (or of one column group of a
     K3 register tile) from its SASS (phase 2's slots per entry): MUFU
@@ -1226,19 +1078,18 @@ def sass_floor_ms(n: int, slots) -> float:
 
 
 def phase_k2(device, seed: int, sass):
-    """The ex2 probe's rates; K2 vs its plain version in float64 on the
-    same inputs, held to K3's gate per output with the TF32 control that
-    it must reject; two passes for equal bits; the diagonal exactly s2
-    in both classes of the ex2 split and across slabs; then CUDA event
-    times at K2_TIMED beside the bound, the MUFU-only term, the SASS
-    model (phase 2's slots per entry `sass`), K3 at B = 1 on the same
-    inputs and the plain version; at K2_PLANS_TIMED the gate as well,
-    and the kernel's time under each of k2_plans. Returns the report."""
+    """K2 vs its plain version in float64 on the same inputs, held to
+    K3's gate per output with the TF32 control that it must reject; two
+    passes for equal bits; the diagonal exactly s2 in both classes of
+    the ex2 split and across slabs; then CUDA event times at K2_TIMED
+    beside the bound, the MUFU-only term, the SASS model (phase 2's
+    slots per entry `sass`), K3 at B = 1 on the same inputs and the
+    plain version; at K2_PLANS_TIMED the gate as well, and the kernel's
+    time under each of k2_plans. Returns the report."""
     import torch
 
     from gp_ss_ak_torch.ops import matvec
 
-    ex2_probe(device)
     scale = SIGMA * SIGMA + BIAS
     g = torch.Generator(device=device).manual_seed(seed + 2)
     report = {"max_abs_err": 0.0}
@@ -1656,18 +1507,6 @@ def phase_golden(device):
     np.testing.assert_allclose(std, z["std"], rtol=1e-7, atol=1e-10)
     if device.type == "cuda":
         _check(used == 3, f"golden: expected 3 K1 launches, saw {used}")
-
-
-def ore_body(seed: int, n: int):
-    """A smooth synthetic 3-D ore body in drill-hole coordinates
-    (metres in a 300 m cube) with 0.05 measurement noise."""
-    rng = np.random.default_rng(seed)
-    X = rng.uniform(0.0, 300.0, size=(n, 3))
-    u = X / 150.0 - 1.0
-    y = (1.2 + 0.6 * np.sin(1.7 * u[:, 0] + 0.4) * np.cos(1.3 * u[:, 1])
-         + 0.4 * u[:, 2] + 0.25 * np.sin(2.1 * u[:, 0] * u[:, 2])
-         + 0.05 * rng.normal(size=n))
-    return X, y
 
 
 def write_case(workdir: str, seed: int, n_train: int, n_test: int,

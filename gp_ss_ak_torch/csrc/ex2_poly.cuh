@@ -1,6 +1,6 @@
 // 2^x in float32 two ways: on the SFU (MUFU.EX2) and as a polynomial on
-// the FP32 pipes, for x <= 0. Shared by K2 (matvec.cu) and the ex2 probe
-// (ex2_probe.cu), which measures both rates on the card.
+// the FP32 pipes, for x <= 0. Included by K2 (matvec.cu), K3
+// (matmat.cu) and K4 (contraction.cu).
 //
 // An H100 SM runs 16 MUFU operations a clock against 128 FP32
 // instructions, so a kernel with two SFU operations per element and a

@@ -43,8 +43,7 @@
 //    over 16 columns an iteration of its inner loop, which leaves the
 //    compiler room to interleave the polynomials' dependent chains with
 //    the MUFU operations. The share was timed on an H100 by building
-//    this file at each POLY_OF_8 (python3 -m
-//    gp_ss_ak_torch.ops.k2_share_sweep).
+//    this file at each POLY_OF_8 when K2 was redesigned for Hopper.
 //  * Cuts the columns into slabs on a second grid axis, as many as make
 //    the blocks close to a whole number of waves (the wrapper's plan,
 //    from n and the SM count alone); each block writes its partial sums

@@ -80,11 +80,6 @@ def _declare(lib) -> None:
     lib.gp_contraction_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                        i32, ptr]
     lib.gp_contraction_f32.restype = i32
-    # out, poly, iters, blocks, device, stream
-    lib.gp_ex2_probe.argtypes = [ptr, i32, i32, i32, i32, ptr]
-    lib.gp_ex2_probe.restype = i32
-    lib.gp_ex2_probe_per_iter.argtypes = []
-    lib.gp_ex2_probe_per_iter.restype = i32
     lib.gp_cuda_error_string.argtypes = [i32]
     lib.gp_cuda_error_string.restype = ctypes.c_char_p
 

@@ -7,13 +7,16 @@ bytes over 3.35 TB/s; the SFU and FP32 work together ("SFU/FMA",
 the SM clock, the FP32 operations outside any product on the FP32 pipes
 at 67 TFLOP/s (two flops an instruction), and the ex2 split at its best
 between MUFU and a 10-slot polynomial on the FP32 pipes (the slots of
-gp_ss_ak_torch/csrc/ex2_poly.cuh's SASS, which the ex2 probe's rate on
-the card confirmed); and a product
+gp_ss_ak_torch/csrc/ex2_poly.cuh's SASS, which a probe's rate on the
+card confirmed); and a product
 over the 495 TFLOP/s of TF32 at three TF32 products each (float32
 accuracy on the tensor cores). At an H100 SXM's 132 SMs and 1.98 GHz
 the numbers below are the ones PERF.md states, to 1e-3 relative; the
 MUFU-only SFU term, which PERF.md prints beside the balanced one, is
-2.054 ms at N = 65536.
+2.054 ms at N = 65536. The peaks, `bound`, `sfu_fma_ms`, the work counts
+of K1 and K3, `card_rates` and the ore body are the benchmark's own
+(port_bench/roofline.py, port_bench/data.py), so the smoke and the
+benchmark read one yardstick.
 
 The K3 gate (max |Y - plain64| per column within 1.5e-7 (s2 + bias)
 ||V[:, b]||_1) must reject a TF32 product and accept a 3xTF32 one, whose
@@ -21,11 +24,14 @@ split leaves ~2^-21 of each product; at n = 4097, B = 64 they sit at
 ~17x and ~0.005 of it.
 """
 
+import ast
 import importlib.util
 import os
 
 import pytest
 import torch
+
+from port_bench import data, roofline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -98,6 +104,27 @@ def test_balanced_sfu_term_is_the_best_split(work):
     assert balanced == pytest.approx(best, rel=2e-3) and balanced <= best
     assert 1e3 * fp32 / cs.PEAK_FP32_FLOPS < balanced < mufu_only
     assert mufu_only == pytest.approx(split_ms(sfu / 2), rel=1e-12)
+
+
+def test_yardstick_is_the_benchmarks():
+    """chip_smoke.py holds no copy of port_bench's yardstick or ore body:
+    it binds their objects, and defines none of their names."""
+    shared = {"PEAK_BYTES_S": roofline, "PEAK_FP32_FLOPS": roofline,
+              "PEAK_TF32_FLOPS": roofline, "SFU_PER_SM_CLOCK": roofline,
+              "POLY_EX2_SLOTS": roofline, "card_rates": roofline,
+              "sfu_fma_ms": roofline, "bound": roofline,
+              "gram_work": roofline, "matmat_work": roofline,
+              "ore_body": data}
+    for name, owner in shared.items():
+        assert getattr(cs, name) is getattr(owner, name), name
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    defined = {t.id for node in tree.body if isinstance(node, ast.Assign)
+               for target in node.targets
+               for t in ast.walk(target) if isinstance(t, ast.Name)}
+    defined |= {node.name for node in tree.body
+                if isinstance(node, ast.FunctionDef)}
+    assert not defined & set(shared)
 
 
 @pytest.mark.parametrize("d", [3, 4])

@@ -115,7 +115,9 @@ def test_launch_local_stops_every_rank_at_the_first_failure(tmp_path):
     """parallel.launch_local, the one launcher of local ranks (the dry
     run's and chip_smoke.py's): each rank sees torchrun's variables; a
     failing rank stops the others long before the time limit, and the
-    error carries every rank's log."""
+    error carries every rank's log. The failing rank exits only once
+    rank 0 has logged its line (or after ~20 s), since under load rank 0
+    may not have started when it is stopped."""
     import sys
     import time
 
@@ -126,16 +128,25 @@ def test_launch_local_stops_every_rank_at_the_first_failure(tmp_path):
             "print('rank', r, 'of', os.environ['WORLD_SIZE'],\n"
             "      os.environ['MASTER_ADDR'], os.environ['LOCAL_RANK'])\n"
             "sys.stdout.flush()\n"
-            "sys.exit(3) if r == sys.argv[2] else "
+            "if r == sys.argv[2]:\n"
+            "    end = time.monotonic() + 20\n"
+            "    while time.monotonic() < end:\n"
+            "        with open(sys.argv[3]) as f:\n"
+            "            if 'rank 0 of' in f.read():\n"
+            "                break\n"
+            "        time.sleep(0.05)\n"
+            "    sys.exit(3)\n"
             "time.sleep(float(sys.argv[1]))\n")
-    wall = launch_local([sys.executable, "-c", code, "0", "none"], 2,
+    wall = launch_local([sys.executable, "-c", code, "0", "none",
+                         str(tmp_path / "ok" / "rank0.log")], 2,
                         str(tmp_path / "ok"), timeout=60)
     assert wall < 60
     assert (tmp_path / "ok" / "rank0.log").read_text() \
         == "rank 0 of 2 127.0.0.1 0\n"
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match="rank 1 failed") as err:
-        launch_local([sys.executable, "-c", code, "120", "1"], 2,
+        launch_local([sys.executable, "-c", code, "120", "1",
+                      str(tmp_path / "bad" / "rank0.log")], 2,
                      str(tmp_path / "bad"), timeout=60)
     assert time.perf_counter() - t0 < 30
     assert "rank 0 of 2" in str(err.value) and "rank 1 of 2" in str(err.value)

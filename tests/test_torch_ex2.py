@@ -11,8 +11,8 @@ classes of its split), within 3 ulp of 2^-23 relative over [-126, 0]
 (ex2.approx's own 2 ulp, plus one for the emulation's multiply-adds,
 which round in float64 before float32), and finite and non-negative
 below -126. The rest checks the wrapper's plan and argument handling,
-chip_smoke.py's reading of SASS and the share sweep's rewrite of
-matvec.cu, on made-up inputs.
+chip_smoke.py's reading of SASS on a made-up listing, and which sources
+the kernel library is built from.
 """
 
 import importlib.util
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from gp_ss_ak_torch.ops import k2_share_sweep, matvec
+from gp_ss_ak_torch.ops import _build, matvec
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = os.path.join(ROOT, "gp_ss_ak_torch", "csrc", "ex2_poly.cuh")
@@ -232,21 +232,7 @@ def test_sass_reading():
     assert cs.innermost_loop(insns, "HMMA") is None
 
 
-def test_share_sweep_rewrites_only_the_share():
-    with open(os.path.join(ROOT, "gp_ss_ak_torch", "csrc",
-                           "matvec.cu")) as f:
-        src = f.read()
-    for k in (0, 5):
-        out = k2_share_sweep.with_share(src, k)
-        diff = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
-                if a != b]
-        assert len(diff) == 1 and len(out) == len(src)
-        assert diff[0][1].startswith(f"constexpr int POLY_OF_8 = {k};")
-    with pytest.raises(ValueError):
-        k2_share_sweep.with_share(src + "\nconstexpr int POLY_OF_8 = 2;\n",
-                                  1)
-
-
-def test_share_sweep_refuses_without_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert k2_share_sweep.main(["--shares", "0"]) == 1
+def test_library_is_built_from_the_four_kernels_alone():
+    """`_build.load()` compiles and links K1-K4 and nothing else."""
+    assert [p.name for p in _build._sources()] == [
+        "contraction.cu", "gram.cu", "matmat.cu", "matvec.cu"]
