@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only k3       (phases 1, 2 and 4: K3 alone)
     python3 chip_smoke.py --only k2       (phases 1, 2, 5 and 14: K2 alone)
     python3 chip_smoke.py --only k4       (phases 1, 2 and 5b: K4 alone)
+    python3 chip_smoke.py --only k6       (phases 1, 2 and 5c: K6 alone)
     python3 chip_smoke.py --only warped   (phases 1, 2, 9b, 10b, 11b, 13)
     python3 chip_smoke.py --only batched  (phases 1, 2, 15-18)
     python3 chip_smoke.py --only sparse   (phases 1, 2, 19-24)
@@ -16,12 +17,13 @@ NVIDIA GPU.
 Phases, each of which raises on failure (nothing is caught):
   1. device: card name and power limit, torch/CUDA/nvcc versions;
   2. build the hand-written kernels K1 (gp_ss_ak_torch/csrc/gram.cu), K2
-     (csrc/matvec.cu), K3 (csrc/matmat.cu) and K4 (csrc/contraction.cu)
-     into one library, one nvcc per source; ptxas's register report (no
-     spills in any K3 instance or in K2), the HMMA count of K3's SASS
-     (cuobjdump), K3's register tiles' issue slots per Gram entry of each
-     inner loop, K2's opcode histograms (no FRND or F2I) and the issue
-     slots per Gram entry of its d = 3 inner loop;
+     (csrc/matvec.cu), K3 (csrc/matmat.cu), K4 (csrc/contraction.cu) and
+     K6 (csrc/pivchol.cu) into one library, one nvcc per source;
+     ptxas's register report (no spills in any K3 instance or in K2),
+     the HMMA count of K3's SASS (cuobjdump), K3's register tiles' issue
+     slots per Gram entry of each inner loop, K2's opcode histograms (no
+     FRND or F2I) and the issue slots per Gram entry of its d = 3 inner
+     loop;
   3. K1 against its plain torch version on the card, at ragged sizes and
      at the main path's shapes, in float64 and float32, plus timings;
   4. K3 against its plain version in float64, at ragged sizes, at the
@@ -52,6 +54,16 @@ Phases, each of which raises on failure (nothing is caught):
      replaced against float64; the kernel's time beside its bound and
      the SASS model's floor, `_grad_contraction`'s, the plain version's
      and the autograd version's; the kernel at rank 17;
+  5c. K6 (csrc/pivchol.cu, the pivoted Cholesky's steps): no spills in
+     ptxas's report; against the plain loop on the card at the main
+     path's (n, rank) = (100000, 1024) and (16384, 341), on the ore
+     body's mapped points, in float32 and float64: the first 64 pivots,
+     the trace of K - L L^T, 4096 sampled entries of L L^T, two calls
+     bit for bit, `rank` launches a call, and, reported, the first step
+     whose pivot differs and logdet P of the two preconditioners; its
+     time at both shapes beside its bound (`pivchol_work`), the plain
+     loop's and the one-direction sweep's (the ragged and rank > n cases
+     are the card tests');
   6. the golden fixture (tests/golden) through K1 in float64;
   7. the dense path: `gp_ss_ak_torch.cli.main([... "test" ...])` in
      float32 on a synthetic ore body, N_train = 16384, N_test = 4096;
@@ -634,7 +646,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: K1, K2 and K3 loaded in {time.perf_counter() - t0:.3f} s "
+    print(f"build: K1-K4 and K6 loaded in {time.perf_counter() - t0:.3f} s "
           f"(nvcc, one process per source, then link: "
           f"{_build.build_info.get('seconds', 0.0):.3f} s)")
     log = _build.build_info.get("log", "")
@@ -1467,6 +1479,171 @@ def phase_k4(device, seed: int):
     return report
 
 
+# ---------------------------------------------------------------------------
+# K6, the pivoted Cholesky's steps (csrc/pivchol.cu)
+# ---------------------------------------------------------------------------
+
+#: (n, rank, d) of K6's gate and times: the main path's
+#: (`auto_precond_rank`: 1024 at 100000, 341 at 16384)
+K6_CASES = ((100000, 1024, 3), (16384, 341, 3))
+#: kernel against the plain loop on the card: the trace of K - L L^T
+#: (relative; plus 8 ulps of the type times trace K, the round-off of
+#: a residual that is itself round-off at full rank), sampled entries of
+#: L L^T (of s2 + bias)
+TOL_K6_TRACE, TOL_K6_ENTRY = 1e-4, 1e-4
+
+
+def pivchol_work(n: int, rank: int, d: int):
+    """K6's work for `rank` steps at n points in float32: step j reads
+    rows 0..j-1 of L^T (4 n j bytes) and, once, the points (4 n d), d
+    (read and written, 8 n) and L^T's row j (4 n written); j FMA a point
+    in the dot product and 3d + 7 FP32 operations for the entry and the
+    update (two flops each, as `sfu_fma_ms` counts them); a sqrt and an
+    exp a point on the SFU; no product on the tensor cores."""
+    steps = rank * (rank - 1) / 2.0             # sum_j j
+    return 4.0 * n * steps + 4.0 * n * rank * (d + 3), \
+        2.0 * n * (steps + rank * (3 * d + 7)), 2.0 * n * rank, 0.0
+
+
+def _k6_case(device, n: int, seed: int):
+    """(points, sigma, bias, sn2): the ore body at n mapped by the golden
+    model, as the matrix-free path maps it."""
+    import torch
+
+    Xs, _, _ = _mesh_problem(seed, n)
+    it_gp = _iterative_gp(_golden_model(device, torch.float32), Xs, device)
+    return it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2
+
+
+def _k6_compare(L, Lp, s2b: float, sn2, g):
+    """K6's factor L against the plain loop's Lp: (pivots equal over the
+    first 64 columns, the first column whose pivot differs or None,
+    |trace residual kernel - plain|, the plain's trace residual
+    trace(K - Lp Lp^T), max |(L L^T - Lp Lp^T)(p, q)| / (s2 + bias) over
+    4096 sampled pairs, logdet P of each preconditioner L L^T + sn2 I).
+    A column's pivot is read back as its largest entry."""
+    import torch
+
+    from gp_ss_ak_torch.inference.iterative import precond_sqrt_pieces
+
+    n, rank = L.shape
+    k = min(64, rank, n)
+    piv, pivp = L[:, :k].abs().argmax(0), Lp[:, :k].abs().argmax(0)
+    same = torch.equal(piv, pivp)
+    m = min(rank, n)
+    differ = torch.nonzero(L[:, :m].abs().argmax(0)
+                           != Lp[:, :m].abs().argmax(0))
+    first = int(differ[0, 0]) if differ.numel() else None
+    L64, Lp64 = L.double(), Lp.double()
+    tr = n * s2b - float((L64 * L64).sum())
+    trp = n * s2b - float((Lp64 * Lp64).sum())
+    p = torch.randint(0, n, (4096,), generator=g, device=L.device)
+    q = torch.randint(0, n, (4096,), generator=g, device=L.device)
+    ent = ((L64[p] * L64[q]).sum(1) - (Lp64[p] * Lp64[q]).sum(1)).abs()
+    s = torch.as_tensor(sn2, dtype=L.dtype, device=L.device)
+    logdets = tuple(float(precond_sqrt_pieces(f, s)[2]) for f in (L, Lp))
+    return same, first, abs(tr - trp), trp, float(ent.max()) / s2b, logdets
+
+
+def phase_k6(device, seed: int):
+    """K6 against the plain loop on the card at K6_CASES in float32 and
+    float64 (the first 64 pivots, the trace of K - L L^T, 4096 sampled
+    entries of L L^T, two calls bit for bit, `rank` launches a call; the
+    first step whose pivot differs and both logdet P reported); then
+    CUDA event times at K6_CASES beside the bound (`pivchol_work`), the
+    plain loop's time and the one-direction sweep's; ptxas's report of
+    its instances (no spills). Returns the report."""
+    import torch
+
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import _build, pivchol
+
+    log = _build.build_info.get("log", "")
+    spills = re.findall(r"Function properties for (\S*pivchol_step\S*)\s+"
+                        r"\d+ bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log)
+    _check(len(spills) == 8, f"ptxas reported {len(spills)} K6 instances")
+    for name, st, ld in spills:
+        _check(st == ld == "0", f"K6 {name} spills: {st} bytes stored, {ld} "
+               f"loaded")
+    print(f"build: K6's {len(spills)} instances, no spills")
+    g = torch.Generator(device=device).manual_seed(seed + 6)
+    report = {"max_abs_err": 0.0}
+    rates = card_rates()
+    for n, rank, d in K6_CASES:
+        X32, sigma, bias, sn2 = _k6_case(device, n, seed)
+        s2b = float(sigma) ** 2 + float(bias)
+        for dtype in (torch.float32, torch.float64):
+            X = X32.to(dtype).contiguous()
+            before = pivchol.launches
+            L = ti.pivoted_cholesky(X, sigma, bias, rank)
+            L2 = ti.pivoted_cholesky(X, sigma, bias, rank)
+            _check(pivchol.launches == before + 2 * rank,
+                   f"K6 made {pivchol.launches - before} launches for two "
+                   f"calls at rank {rank}")
+            Lp = ti.pivoted_cholesky_plain(X, sigma, bias, rank)
+            same, first, tr_diff, trp, ent, (ld_k, ld_p) = _k6_compare(
+                L, Lp, s2b, sn2, g)
+            tr_lim = TOL_K6_TRACE * abs(trp) \
+                + 8 * torch.finfo(dtype).eps * n * s2b
+            bits = torch.equal(L, L2)
+            print(f"K6 n={n} rank {rank} d={d} {str(dtype)[6:]}: first "
+                  f"{min(64, rank, n)} pivots "
+                  f"{'equal' if same else 'DIFFER'}; pivots "
+                  + ("all equal" if first is None
+                     else f"first differ at step {first}")
+                  + f"; trace of K - L L^T {trp:.6e} (plain), kernel - "
+                  f"plain {tr_diff:.3e} (limit {tr_lim:.3e}); L L^T "
+                  f"entries {ent:.3e} of s2 + bias (limit {TOL_K6_ENTRY}); "
+                  f"logdet P (sn2 {float(sn2):.6g}) kernel {ld_k:.9g}, "
+                  f"plain {ld_p:.9g}, relative difference "
+                  f"{abs(ld_k - ld_p) / abs(ld_p):.3e}; two calls "
+                  f"{'bitwise equal' if bits else 'DIFFER'}")
+            _check(same, f"K6 pivots differ at n={n} rank {rank}")
+            _check(tr_diff <= tr_lim and ent <= TOL_K6_ENTRY,
+                   f"K6 disagrees with the plain loop at n={n} rank {rank}")
+            _check(bits, f"K6 calls differ at n={n} rank {rank}")
+            report["max_abs_err"] = max(report["max_abs_err"], ent)
+            del L, L2, Lp
+        torch.cuda.empty_cache()
+
+        X = X32.contiguous()
+        s = torch.as_tensor(sigma, dtype=X.dtype, device=device)
+        scal = torch.stack((s * s, torch.as_tensor(bias, dtype=X.dtype,
+                                                   device=device)))
+        ld, splits, per_block, blocks = pivchol.pivchol_plan(n, 4)
+        before = pivchol.launches
+        ms = time_ms(lambda: pivchol.run_kernel(X, scal, rank), warmup=2,
+                     iters=5)
+        per_call = (pivchol.launches - before) // 7
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pivchol.run_kernel(X, scal, rank)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        one_way = time_ms(lambda: pivchol.run_kernel(X, scal, rank,
+                                                     alternate=False),
+                          warmup=1, iters=5)
+        plain_ms = time_ms(lambda: ti.pivoted_cholesky_plain(X, sigma, bias,
+                                                             rank),
+                           warmup=1, iters=2)
+        b_ms, b_by = bound(pivchol_work(n, rank, d), **rates)
+        print(f"K6 time N={n} rank {rank} d={d} f32: kernel {ms:.4f} ms "
+              f"({per_call} launches a call, {blocks} blocks of "
+              f"{per_block} points, {splits} k groups; the host's call "
+              f"{host_ms:.3f} ms), bound {b_ms:.4f} ms (set by {b_by}; "
+              f"kernel at {b_ms / ms:.3f} of it; over 1 means L2 reuse), "
+              f"one-direction sweep {one_way:.4f} ms (alternating "
+              f"{'wins' if ms < one_way else 'loses'} by "
+              f"{one_way - ms:+.4f} ms), plain loop {plain_ms:.4f} ms")
+        if n == K6_CASES[0][0]:
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        del X, X32
+        torch.cuda.empty_cache()
+    return report
+
+
 def phase_golden(device):
     import torch
 
@@ -1886,7 +2063,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     import torch
 
     from gp_ss_ak_torch.inference import iterative as ti
-    from gp_ss_ak_torch.ops import contraction, matvec
+    from gp_ss_ak_torch.ops import contraction, matvec, pivchol
     from gp_ss_ak_torch.optim import fit
 
     from gp_ss_ak_torch.optim import api
@@ -1899,6 +2076,7 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     torch.cuda.reset_peak_memory_stats()
     timing, log = {}, []
     before, before4 = matvec.launches, contraction.launches
+    before6 = pivchol.launches
     make = api.make_iterative_value_and_grad
     api.make_iterative_value_and_grad = _recording(make, log)
     try:
@@ -1915,6 +2093,8 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
             if issubclass(w.category, ti.UnconvergedSolveWarning)]
     k3 = matvec.launches - before
     k4 = contraction.launches - before4
+    k6 = pivchol.launches - before6
+    rank = ti.auto_precond_rank(Xtrs.shape[0])
     print(f"iterative fit N={Xtrs.shape[0]} (stream): -logL "
           f"{res.trace[0]:.6f} -> {res.fun:.6f}, {res.n_iters} iterations, "
           f"{res.n_evals} evaluations, stop {res.stop_reason}; per "
@@ -1923,8 +2103,8 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
           f"{timing['unconverged_evals']} of {res.n_evals}, largest rel "
           f"residual {timing['max_rel_residual']:.3e}; warnings "
           f"{[str(w.message) for w in seen]}; wall {wall:.3f} s; K3 "
-          f"launches {k3}, K4 launches {k4}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"launches {k3}, K4 launches {k4}, K6 launches {k6}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     _check(len(seen) == (1 if timing["unconverged_evals"] else 0),
            f"iterative fit: {len(seen)} warnings for "
            f"{timing['unconverged_evals']} unconverged evaluations")
@@ -1935,6 +2115,8 @@ def phase_iter_fit(device, train: str, test: str, model_path: str):
     _check(k3 > 0, "iterative fit launched no K3")
     _check(len(log) == res.n_evals, f"{len(log)} evaluations recorded, "
            f"the fit says {res.n_evals}")
+    _check(k6 == rank * res.n_evals, f"iterative fit: {k6} K6 launches, "
+           f"not {rank} a preconditioner for {res.n_evals} evaluations")
     return model, Xtrs, ytrs, k3
 
 
@@ -2002,7 +2184,8 @@ def phase_train_default(itrain: str, workdir: str):
               "cmd_train.predict": "training-set predict"}
     log = []
     make = api.make_iterative_value_and_grad
-    api.make_iterative_value_and_grad = _recording(make, log)
+    api.make_iterative_value_and_grad = _recording(make, log,
+                                                   mode == "chol")
     try:
         with contextlib.redirect_stdout(out):
             rc, wall, split, total, top = profile_split(lambda: cli.main(
@@ -3526,8 +3709,9 @@ def run_warped_iterative(device, seed: int, zero, counts, wmodel: str,
 
 def run_train_default(itrain: str, zero, counts):
     """Counted: the default train route at N_ITER_TRAIN (phase 13).
-    Returns its (K1, K3, K4) launches."""
-    from gp_ss_ak_torch.ops import contraction
+    Returns its (K1, K3, K4, K6) launches."""
+    from gp_ss_ak_torch.inference.iterative import auto_precond_rank
+    from gp_ss_ak_torch.ops import contraction, pivchol
 
     zero()
     n_evals, mode = phase_train_default(itrain, os.path.dirname(itrain))
@@ -3542,7 +3726,15 @@ def run_train_default(itrain: str, zero, counts):
         _check(counts()[2] > 0, f"default train route ({mode} mode) "
                f"launched no K3: (K1, K2, K3) = {counts()}")
     _check(contraction.launches > 0, "default train route launched no K4")
-    return counts()[0], counts()[2], contraction.launches
+    # a preconditioner an evaluation and one for the training-set
+    # predict's IterativePredictor, none in chol mode
+    rank = auto_precond_rank(N_ITER_TRAIN)
+    want6 = 0 if mode == "chol" else rank * (n_evals + 1)
+    print(f"default train route: K6 launches {pivchol.launches} (expected "
+          f"{want6}: {mode} mode, {n_evals} evaluations)")
+    _check(pivchol.launches == want6, f"default train route: "
+           f"{pivchol.launches} K6 launches, not {want6}")
+    return counts()[0], counts()[2], contraction.launches, pivchol.launches
 
 
 # ---------------------------------------------------------------------------
@@ -4260,18 +4452,20 @@ class _Recorded:
     """A matrix-free value_and_grad that appends (sn2, CG iterations,
     rel residual, rank, host seconds) for every evaluation to `log`; its
     other attributes (cg_tol, last_rel_residual, ...) read through, so
-    optim.fit judges its solves as it judges the closure's. Gate: each
+    optim.fit judges its solves as it judges the closure's. Gates: each
     evaluation launches K4 once for its gradient, and not at all after a
-    failed solve (which returns without one)."""
+    failed solve (which returns without one); each builds its
+    preconditioner by K6, `precond_rank` launches, unless `chol` (the
+    materialized mode, which builds none)."""
 
-    def __init__(self, vg, log):
-        self.vg, self.log = vg, log
+    def __init__(self, vg, log, chol=False):
+        self.vg, self.log, self.chol = vg, log, chol
 
     def __call__(self, x):
         from gp_ss_ak_torch.inference.iterative import solve_state
-        from gp_ss_ak_torch.ops import contraction
+        from gp_ss_ak_torch.ops import contraction, pivchol
 
-        before = contraction.launches
+        before, before6 = contraction.launches, pivchol.launches
         t0 = time.perf_counter()
         out = self.vg(x)
         rel = self.vg.last_rel_residual
@@ -4281,18 +4475,22 @@ class _Recorded:
         want = 0 if solve_state(rel, self.vg.cg_tol) == "failed" else 1
         _check(k4 == want, f"an evaluation (rel residual {rel:.3e}) made "
                f"{k4} K4 launches, not {want}")
+        k6 = pivchol.launches - before6
+        want6 = 0 if self.chol else self.vg.precond_rank
+        _check(k6 == want6, f"an evaluation made {k6} K6 launches, not "
+               f"{want6}")
         return out
 
     def __getattr__(self, name):
         return getattr(self.__dict__["vg"], name)
 
 
-def _recording(make, log):
+def _recording(make, log, chol=False):
     """`make` (make_iterative_value_and_grad or
     make_segmented_value_and_grad) whose closures record into `log`
-    (_Recorded)."""
+    (_Recorded; `chol`: they evaluate in the materialized mode)."""
     def made(model, X, y, **kw):
-        return _Recorded(make(model, X, y, **kw), log)
+        return _Recorded(make(model, X, y, **kw), log, chol)
 
     return made
 
@@ -4412,13 +4610,15 @@ def phase_seg_k3(device, seed: int):
 def run_segmented(device, seed: int, zero, counts):
     """Counted: phases 31-33 at N_SEG (K3 alone: no K1 or K2 in the
     fits; the server's mean launches K1); then phase 34 outside the
-    count. Returns (the counted K1, K3 and K4 launches, phase 34's
+    count. Returns (the counted K1, K3, K4 and K6 launches, phase 34's
     report)."""
     import torch
 
-    from gp_ss_ak_torch.ops import contraction
+    from gp_ss_ak_torch.inference.iterative import auto_precond_rank
+    from gp_ss_ak_torch.ops import contraction, pivchol
 
     t0 = time.perf_counter()
+    rank = auto_precond_rank(N_SEG)
     case, model, Xtrs, ytrs = _seg_case(device, seed)
     zero()
     cold, x, v1, k1 = phase_seg_vs_fused(device, model, Xtrs, ytrs)
@@ -4431,16 +4631,24 @@ def run_segmented(device, seed: int, zero, counts):
     # evaluations, phase 32's cold, warm and warm
     _check(contraction.launches == 6, f"segmented evaluations: "
            f"{contraction.launches} K4 launches for 6 gradients")
-    phase_seg_train(device, case, os.path.dirname(case[0]))
+    _check(pivchol.launches == 6 * rank, f"segmented evaluations: "
+           f"{pivchol.launches} K6 launches for 6 preconditioners of rank "
+           f"{rank}")
+    evals, _, _ = phase_seg_train(device, case, os.path.dirname(case[0]))
     k1_l, _, k3_l = counts()
-    k4_l = contraction.launches
-    print(f"segmented path: (K1, K2, K3) launches {counts()}, K4 {k4_l}")
+    k4_l, k6_l = contraction.launches, pivchol.launches
+    print(f"segmented path: (K1, K2, K3) launches {counts()}, K4 {k4_l}, "
+          f"K6 {k6_l}")
     _check(k3_l > 0 and k1_l > 0, f"segmented path: (K1, K2, K3) = "
            f"{counts()}")
+    # one preconditioner an evaluation (6, then the CLI fit's), one for
+    # the CLI's training-set predict and one for the holdout's server
+    _check(k6_l == rank * (6 + evals + 2), f"segmented path: {k6_l} K6 "
+           f"launches, not {rank} x (6 + {evals} + 2)")
     torch.cuda.empty_cache()
     report = phase_seg_k3(device, seed)
     print(f"segmented phases done in {time.perf_counter() - t0:.1f} s")
-    return k1_l, k3_l, k4_l, report
+    return k1_l, k3_l, k4_l, k6_l, report
 
 
 
@@ -4560,11 +4768,12 @@ def run_examples(zero, counts_k1):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("k3", "k2", "k4", "warped",
+    ap.add_argument("--only", choices=("k3", "k2", "k4", "k6", "warped",
                                        "batched", "sparse", "parallel",
                                        "segmented", "examples"),
                     help="k3: phases 1, 2 and 4; k2: phases 1, 2, 5 and "
-                         "14; k4: phases 1, 2 and 5b; warped: phases 1, 2, 9b, "
+                         "14; k4: phases 1, 2 and 5b; k6: phases 1, 2 and "
+                         "5c; warped: phases 1, 2, 9b, "
                          "10b, 11b and 13; batched: phases 1, 2 and 15-18; "
                          "sparse: phases 1, 2 and 19-24; parallel: phases "
                          "1, 2 and 25-30; segmented: phases 1, 2 and "
@@ -4582,7 +4791,7 @@ def main(argv=None) -> int:
         return 1
     if args.mesh_io is not None:
         return mesh_rank_main(args)
-    from gp_ss_ak_torch.ops import contraction, matvec, pairwise
+    from gp_ss_ak_torch.ops import contraction, matvec, pairwise, pivchol
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -4597,6 +4806,7 @@ def main(argv=None) -> int:
         pairwise.launches = pairwise.batched_launches = 0
         matvec.launches = matvec.matvec_launches = 0
         contraction.launches = 0
+        pivchol.launches = 0
 
     def counts():
         return (pairwise.launches + pairwise.batched_launches,
@@ -4615,6 +4825,11 @@ def main(argv=None) -> int:
     if args.only == "k4":
         phase_k4(device, args.seed)
         print(f"K4 phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    if args.only == "k6":
+        phase_k6(device, args.seed)
+        print(f"K6 phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     if args.only == "k2":
@@ -4679,6 +4894,7 @@ def main(argv=None) -> int:
     k3 = phase_k3(device, args.seed)
     k2 = phase_k2(device, args.seed, sass)
     k4 = phase_k4(device, args.seed)
+    k6 = phase_k6(device, args.seed)
     phase_golden(device)
     train, test, model_path = write_case(WORK, args.seed, N_TRAIN, N_TEST)
 
@@ -4745,8 +4961,9 @@ def main(argv=None) -> int:
     k3_launches += k3_w
 
     # counted run 4, matrix-free training (stream mode); from here K4's
-    # launches are added up over the runs that gate one a gradient
-    # (_Recorded): 4, 5 and 17-19
+    # and K6's launches are added up over the runs that gate one a
+    # gradient and one preconditioner an evaluation (_Recorded): 4, 5
+    # and 17-19
     zero()
     start, Xfit, yfit, _ = phase_iter_fit(device, itrain, itest, imodel)
     _check(matvec.launches > 0 and matvec.matvec_launches == 0,
@@ -4755,14 +4972,16 @@ def main(argv=None) -> int:
     k1_launches += pairwise.launches
     k3_launches += matvec.launches
     k4_launches = contraction.launches
+    k6_launches = pivchol.launches
     phase_iter_eval_split(device, args.seed, start, Xfit, yfit)
 
     # counted run 5, the default train route past DENSE_MAX_N: the CLI
     # with --engine auto, then its training-set predict
-    k1_d, k3_d, k4_d = run_train_default(itrain, zero, counts)
+    k1_d, k3_d, k4_d, k6_d = run_train_default(itrain, zero, counts)
     k1_launches += k1_d
     k3_launches += k3_d
     k4_launches += k4_d
+    k6_launches += k6_d
     torch.cuda.empty_cache()
 
     # counted run 6, the K2 path: nlml_iterative without a preconditioner
@@ -4798,11 +5017,12 @@ def main(argv=None) -> int:
 
     # counted runs 17-19, the segmented evaluator at N_SEG: against the
     # fused one, warm against cold, `train --segmented` and its holdout
-    k1_g, k3_g, k4_g, k3_seg = run_segmented(device, args.seed, zero,
-                                             counts)
+    k1_g, k3_g, k4_g, k6_g, k3_seg = run_segmented(device, args.seed, zero,
+                                                   counts)
     k1_launches += k1_g
     k3_launches += k3_g
     k4_launches += k4_g
+    k6_launches += k6_g
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_seg["max_abs_err"])
 
     # counted runs 20-23, the four example workflows
@@ -4823,6 +5043,10 @@ def main(argv=None) -> int:
                       "N=100000 rank 9)", "gp_ss_ak_torch/csrc/contraction.cu",
                       "none (XLA: gp_ss_ak_tpu/inference/iterative.py:855)",
                       k4_launches, k4),
+        _kernel_entry("pivchol (K6, the pivoted Cholesky's steps, N=100000 "
+                      "rank 1024)", "gp_ss_ak_torch/csrc/pivchol.cu",
+                      "none (XLA: gp_ss_ak_tpu/inference/iterative.py:87)",
+                      k6_launches, k6),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,9 @@ time, by stage:
   iterative.slq_logdet_batched    SLQ
   iterative._grad_contraction     the gradient's contraction
   iterative._materialized_chol    the materialized factor ("chol")
-No range sits inside a per-step loop (the pivoted Cholesky's steps, CG
-iterations, Lanczos steps).
+No range sits inside a per-step loop (CG iterations, Lanczos steps, the
+plain pivoted Cholesky's steps on the CPU); on the card the pivoted
+Cholesky's steps are launches of one kernel (K6), queued by one call.
 
 What differs from JAX, and why:
   * `lax.while_loop`, `fori_loop` and `scan` become Python loops. A CG
@@ -47,6 +48,9 @@ What differs from JAX, and why:
     written out in closed form, and its O(N^2) part (two sums a row) is
     one pass of the hand-written kernel K4 on the card, which stores no
     Gram entry, and chunked plain torch on the CPU.
+  * The pivoted Cholesky's `fori_loop` is, on the card, one launch of
+    the hand-written kernel K6 a step, queued by one call with the pivot
+    chosen on the card; on the CPU, the Python loop.
   * The mode thresholds scale with the card's memory (`_mode_thresholds`)
     like JAX's with the TPU's; the CPU keeps the 16 GB defaults.
   * The JAX functions' tile sizes (tm, tn) and `interpret` switch have
@@ -87,6 +91,22 @@ def pivoted_cholesky(Xm: torch.Tensor, sigma, bias, rank: int) -> torch.Tensor:
     """Rank-`rank` pivoted Cholesky of K = sigma^2 exp(-||xi-xj||) + bias
     without building K: greedy max-diagonal pivoting, one kernel column
     (O(n d)) per step. Returns L (n, rank) with L L^T ~ K.
+
+    On a CUDA tensor every step is one launch of the hand-written kernel
+    K6 (ops/pivchol.py, csrc/pivchol.cu), all `rank` queued by one call,
+    the pivot chosen on the card; L is then a view of the kernel's
+    transposed factor. On a CPU tensor it runs `pivoted_cholesky_plain`,
+    the loop of torch ops that follows the JAX package step by step."""
+    if Xm.device.type == "cpu":
+        return pivoted_cholesky_plain(Xm, sigma, bias, rank)
+    from gp_ss_ak_torch.ops import pivchol
+
+    return pivchol.pivoted_cholesky(Xm.contiguous(), sigma, bias, rank)
+
+
+def pivoted_cholesky_plain(Xm: torch.Tensor, sigma, bias,
+                           rank: int) -> torch.Tensor:
+    """`pivoted_cholesky` as a loop of torch ops, ~25 launches a step.
 
     The product L Li runs in full float32 (no TF32): its error lands in
     the cancellation c - L Li and is amplified by 1/sqrt(d_i), which

@@ -6,7 +6,8 @@ links the objects into one shared library with a plain C interface,
 loaded with ctypes. Nothing here includes PyTorch's headers, so a build
 takes seconds (on the host of an H100 80GB HBM3 card: 4.6-5.0 s this
 way for gram.cu and matmat.cu, against 6.5-8.6 s for one nvcc over
-both; 6.6-7.1 s for all four sources). The library goes
+both; 6.6-7.1 s for the four sources of K1-K4, 7.6-9.7 s with K6's
+fifth). The library goes
 to `build/torch_kernels/` beside the package (listed in .gitignore),
 named by a hash of the sources and flags so a stale build is never
 reused. The build runs on first use, never at import: machines without
@@ -80,6 +81,13 @@ def _declare(lib) -> None:
     lib.gp_contraction_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                        i32, ptr]
     lib.gp_contraction_f32.restype = i32
+    for name in ("gp_pivchol_f32", "gp_pivchol_f64"):
+        fn = getattr(lib, name)
+        # x, scal, lt, dvec, pval, pidx, n, d, ld, rank, ks, flip, device,
+        # stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                       i32, i32, ptr]
+        fn.restype = i32
     lib.gp_cuda_error_string.argtypes = [i32]
     lib.gp_cuda_error_string.restype = ctypes.c_char_p
 

@@ -61,12 +61,29 @@ def one_thread():
     (cs.matmat_work(N, 3, 256), 13.33, "tensor"),            # a request
     (cs.matmat_work(N, 3, 1024), 53.31, "tensor"),           # CLI's solves
     (cs.contraction_work(100000, 3, 9), 9.851, "SFU/FMA"),   # K4, the fit
+    (cs.pivchol_work(100000, 1024, 3), 63.27, "bytes"),      # K6, the fit
+    (cs.pivchol_work(16384, 341, 3), 1.1741, "bytes"),       # K6, 16384
 ], ids=["K1-16384", "K2", "K3-B1", "K3-B9", "K3-B64", "K3-B256",
-        "K3-B1024", "K4-100000"])
+        "K3-B1024", "K4-100000", "K6-100000", "K6-16384"])
 def test_bound_matches_perf_md(work, ms, term):
     b_ms, b_term = cs.bound(work, sms=SMS, clock_hz=CLOCK_HZ)
     assert b_term == term
     assert b_ms == pytest.approx(ms, rel=1e-3)
+
+
+@pytest.mark.parametrize("n,rank,d", [(1, 4, 3), (37, 64, 2),
+                                      (16384, 341, 3), (100000, 1024, 3)])
+def test_pivchol_work_is_its_closed_form(n, rank, d):
+    """K6's work summed step by step: step j reads rows 0..j-1 of L^T
+    (4 n j bytes) and the points, d twice and L^T's row j once
+    (4 n (d + 3)); j FMA and 3d + 7 FP32 operations a point; a sqrt and
+    an exp a point."""
+    steps = [(4 * n * j + 4 * n * (d + 3), 2 * n * (j + 3 * d + 7), 2 * n)
+             for j in range(rank)]
+    got = cs.pivchol_work(n, rank, d)
+    for i in range(3):
+        assert got[i] == pytest.approx(sum(s[i] for s in steps), rel=1e-12)
+    assert got[3] == 0.0
 
 
 def test_sfu_term_follows_the_card():

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1, K2, K3 and K4, and the training
+"""The hand-written CUDA kernels K1, K2, K3, K4 and K6, and the training
 path, on the card (marker `gpu`).
 
 Every test here needs a CUDA device and skips without one; the check
@@ -24,6 +24,11 @@ to K3's gate; against K3 at B = 1 (another summation order) to twice it.
 K4 (the gradient's contraction, float32 only) is held to its plain
 version evaluated in float64 on the same inputs, TOL_K4 of each output's
 largest entry: each row's t and g sum n float32 terms of mixed sign.
+K6 (the pivoted Cholesky's steps) is held to the plain loop on the card
+in its own type: the same pivots, and the factor's products to 1e-4 of
+the scale (the two differ by the order of the dot product's sums); and
+in float64 to the JAX package's factor, stored with the points in
+tests/golden: every pivot, and the products to 1e-10 of the scale.
 K1's batched entry (one launch for B members, each with its own
 scalars) is held to the same tolerances per member, and each member's
 output must equal a 2-D launch on that member bit for bit: both run the
@@ -503,6 +508,127 @@ def test_contraction_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         contraction.expans_contraction(torch.zeros(64, 17, device=cuda), cU,
                                        V)
+
+
+# --- K6, the pivoted Cholesky's steps ---
+
+def _trace_residual(L, s2b):
+    """trace(K - L L^T) = n (s2 + bias) - ||L||_F^2, in float64."""
+    L64 = L.double()
+    return L.shape[0] * s2b - float((L64 * L64).sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n,rank,d", [(1, 4, 3), (37, 64, 2),
+                                      (4096, 256, 3), (16384, 341, 3),
+                                      (100000, 1024, 3)])
+def test_pivchol_kernel_matches_plain(cuda, n, rank, d, dtype):
+    """K6 against the plain loop on the card: the first 64 pivots (each
+    column's largest entry is its pivot's), the trace of K - L L^T within
+    1e-4 relative (plus 8 ulps of trace K: at full rank the residual is
+    itself round-off), 4096 sampled entries of L L^T within 1e-4
+    (s2 + bias), two calls bit for bit, `rank` launches a call, zero
+    columns past n."""
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import pivchol
+
+    X = _points(n, d, cuda, seed=n + rank).to(dtype)
+    before = pivchol.launches
+    L = ti.pivoted_cholesky(X, SIGMA, BIAS, rank)
+    L2 = ti.pivoted_cholesky(X, SIGMA, BIAS, rank)
+    assert pivchol.launches == before + 2 * rank
+    assert torch.equal(L, L2)
+    Lp = ti.pivoted_cholesky_plain(X, SIGMA, BIAS, rank)
+    assert L.dtype == dtype and L.shape == Lp.shape == (n, rank)
+    k = min(64, rank, n)
+    assert torch.equal(L[:, :k].abs().argmax(0), Lp[:, :k].abs().argmax(0))
+    tr, trp = _trace_residual(L, SCALE), _trace_residual(Lp, SCALE)
+    assert abs(tr - trp) <= 1e-4 * abs(trp) \
+        + 8 * torch.finfo(dtype).eps * n * SCALE
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    p = torch.randint(0, n, (4096,), generator=g, device=cuda)
+    q = torch.randint(0, n, (4096,), generator=g, device=cuda)
+    L64, Lp64 = L.double(), Lp.double()
+    ent = (L64[p] * L64[q]).sum(1) - (Lp64[p] * Lp64[q]).sum(1)
+    assert float(ent.abs().max()) <= 1e-4 * SCALE
+    if rank > n:
+        assert not L[:, n:].any() and not Lp[:, n:].any()
+
+
+@pytest.mark.parametrize("n,rank,d", [(4096, 256, 3), (1237, 96, 2)])
+def test_pivchol_kernel_matches_jax_factor(cuda, n, rank, d):
+    """K6 in float64 against the JAX package's factor on the same points
+    (tests/golden/pivchol_jax.npz, written on the CPU and held to a fresh
+    JAX factor by tests/test_torch_pivchol.py): every column's pivot
+    JAX's, and 4096 sampled entries of L L^T within 1e-10 (s2 + bias),
+    the limit the plain loop meets against JAX on the CPU."""
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    sigma, bias = 0.9, 0.3                  # tests/test_torch_pivchol.py
+    z = np.load(os.path.join(GOLDEN, "pivchol_jax.npz"))
+    key = f"n{n}_r{rank}_d{d}"
+    X = torch.from_numpy(z[f"{key}_X"]).to(cuda)
+    L = ti.pivoted_cholesky(X, sigma, bias, rank)
+    assert L.is_cuda and L.dtype == torch.float64
+    L = L.cpu().numpy()
+    np.testing.assert_array_equal(np.abs(L).argmax(0), z[f"{key}_pivots"])
+    p, q = z[f"{key}_p"], z[f"{key}_q"]
+    ent = np.einsum("ij,ij->i", L[p], L[q])
+    assert np.abs(ent - z[f"{key}_entries"]).max() \
+        <= 1e-10 * (sigma ** 2 + bias)
+
+
+def test_pivchol_kernel_with_device_scalars(cuda):
+    from gp_ss_ak_torch.inference import iterative as ti
+
+    X = _points(4096, 3, cuda, seed=5).float()
+    L = ti.pivoted_cholesky(X, SIGMA, BIAS, 64)
+    Lt = ti.pivoted_cholesky(X, torch.tensor(SIGMA, device=cuda),
+                             torch.tensor(BIAS, dtype=torch.float64,
+                                          device=cuda), 64)
+    assert torch.equal(L, Lt)
+
+
+def test_iterative_evaluation_builds_its_preconditioner_with_k6(cuda):
+    """`_pivchol` (every matrix-free evaluation's preconditioner) takes
+    K6 on the card: auto_precond_rank(n) launches, no plain step."""
+    from gp_ss_ak_torch.inference import iterative as ti
+    from gp_ss_ak_torch.ops import pivchol
+
+    n = 4096
+    gp = ti.IterativeGP(_points(n, 3, cuda, seed=9).float(),
+                        torch.tensor(SIGMA, device=cuda),
+                        torch.tensor(BIAS, device=cuda),
+                        torch.tensor(SN2, device=cuda))
+    before = pivchol.launches
+    L = ti._pivchol(gp, None)
+    assert pivchol.launches - before == ti.auto_precond_rank(n)
+    assert torch.equal(L, ti.pivoted_cholesky(gp.Xm, gp.sigma, gp.bias,
+                                              ti.auto_precond_rank(n)))
+
+
+def test_pivchol_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from gp_ss_ak_torch.ops import pivchol
+
+    X = _points(64, 3, cuda, seed=3).float()
+    with pytest.raises(TypeError):
+        pivchol.pivoted_cholesky(X.half(), SIGMA, BIAS, 8)
+    with pytest.raises(TypeError):
+        pivchol.pivoted_cholesky(X.to(torch.int32), SIGMA, BIAS, 8)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(X.T.contiguous().T, SIGMA, BIAS, 8)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(torch.zeros(64, pivchol.MAX_FEATURES + 1,
+                                             device=cuda), SIGMA, BIAS, 8)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(X[:0], SIGMA, BIAS, 8)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(X[0], SIGMA, BIAS, 8)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(X, SIGMA, BIAS, -1)
+    with pytest.raises(ValueError):
+        pivchol.pivoted_cholesky(X.cpu(), SIGMA, BIAS, 8)
 
 
 def test_nlml_iterative_without_preconditioner_launches_k2(cuda):
