@@ -1955,8 +1955,9 @@ def _split_text(split, labels, wall, total, top):
 
 def phase_dense_eval_split(device, train: str, test: str, model_path: str):
     """One real dense NLML + gradient evaluation (make_value_and_grad,
-    as the fit calls it) at N_TRAIN in float32: its host-clock time
-    alone, then its device time by profiler range and by kernel."""
+    as the fit calls it) at N_TRAIN of a float32 model, which evaluates
+    in float64 (optim.api.OBJECTIVE_DTYPE): its host-clock time alone,
+    then its device time by profiler range and by kernel."""
     import torch
 
     from gp_ss_ak_torch.optim import make_value_and_grad
@@ -1970,13 +1971,17 @@ def phase_dense_eval_split(device, train: str, test: str, model_path: str):
     t0 = time.perf_counter()
     val, _ = vg(x)
     whole = time.perf_counter() - t0
-    labels = {"kernel:gram_kernel": "K1 forward",
+    labels = {"dense_fit.value_and_grad": "whole evaluation",
+              "kernel:gram_kernel": "K1 forward",
               "QuadLogdet.forward": "potrf + solve",
-              "QuadLogdet.backward": "QW backward (trsm + GEMM)",
+              "QuadLogdet.backward": "QW backward",
+              "QuadLogdet.linv": "its trsm (L^-1)",
+              "QuadLogdet.ainv": "its GEMM (A^-1)",
               "FusedExpansBiasA.backward": "K1 backward"}
     _, pwall, split, total, top = profile_split(lambda: vg(x), labels)
     text = _split_text(split, labels, pwall, total, top)
-    print(f"dense evaluation at N={Xtrs.shape[0]} f32, torch.profiler "
+    print(f"dense evaluation at N={Xtrs.shape[0]} (float32 model, "
+          f"float64 objective), torch.profiler "
           f"device time: {text}; one whole value and gradient "
           f"{whole * 1e3:.3f} ms (host clock, unprofiled, -logL "
           f"{val:.6f})")
@@ -2410,7 +2415,8 @@ def phase_iter_setup_split(server, ytrs):
 def phase_warped_eval(device, train: str, test: str, model_path: str):
     """Outside the counted runs, host clock up to a synchronize: one
     warped dense NLML + gradient evaluation (make_value_and_grad, as the
-    fit calls it) at N_TRAIN in float32, and the warp mix
+    fit calls it) at N_TRAIN of a float32 model, which evaluates in
+    float64, and the warp mix
     (gaussian.warped_predictive_mix) of one batch of TRAIN_PREDICT_CHUNK
     latent Gaussians: means g(y) at that many training targets, variance
     1.05 sn2. Returns (evaluation ms, mix ms)."""
@@ -2454,7 +2460,8 @@ def phase_warped_eval(device, train: str, test: str, model_path: str):
                                         ymax)
     _check(bool(torch.isfinite(mu_w).all() and (var_w > 0).all()),
            "warp mix: non-finite mean or var <= 0")
-    print(f"warped dense evaluation at N={Xtrs.shape[0]} f32 ({WARP_LF}): "
+    print(f"warped dense evaluation at N={Xtrs.shape[0]} (float32 model, "
+          f"float64 objective, {WARP_LF}): "
           f"{eval_ms:.3f} ms per value and gradient (host clock, "
           f"-logL {val:.6f}); warp mix of {mu.shape[0]} latent Gaussians "
           f"x 20 nodes: {mix_ms:.3f} ms ({n_low} + {n_up} bracketing "

@@ -17,7 +17,9 @@ a usable CUDA device they exit 1 and say so, unless `--device cpu` asks
 for the CPU.
 
 `train` fits the hyperparameters (optim.fit: dense, or matrix-free past
-DENSE_MAX_N on a GPU), writes the reference-format model file,
+DENSE_MAX_N on a GPU; the dense objective evaluates in float64 whatever
+the model's dtype, and without `--float64` the model and its file stay
+float32), writes the reference-format model file,
 MODEL_NAME_Statistics.txt and MODEL_NAME_metrics.json, and prints the
 training-set MSE and var(y). `-lf WarpGauss[:family[:m]]` trains the
 warped Gaussian likelihood (family tanh1, rbf or srbf, m triplets; the
@@ -121,7 +123,9 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="initial likelihood noise variance sn2")
     tr.add_argument("--engine", default="auto",
                     choices=("auto", "dense", "iterative", "dist", "ring"),
-                    help="NLML engine: 'dense' Cholesky; 'iterative' the "
+                    help="NLML engine: 'dense' Cholesky (evaluated in "
+                         "float64 whatever the model's dtype); "
+                         "'iterative' the "
                          "matrix-free engine (float32; exact Cholesky, "
                          "GEMM-backed or streamed by N); 'auto' "
                          f"(default) iterative past N={DENSE_MAX_N} on a "
@@ -134,8 +138,11 @@ def _build_parser() -> argparse.ArgumentParser:
                          "from the last one's solutions "
                          "(optim/segmented.py), for the N >~ 10^5 regime")
     tr.add_argument("--float64", action="store_true",
-                    help="fit in float64 (ignored by the iterative "
-                         "engine, which is float32-only)")
+                    help="keep the model, its file and the JIT "
+                         "optimizer's state in float64 (the dense and "
+                         "JIT objectives evaluate in float64 either way; "
+                         "ignored by the iterative engine, which is "
+                         "float32-only)")
     _add_device(tr)
     tr.add_argument("train_file")
     tr.add_argument("model_name", nargs="?", default="gp_model")

@@ -142,7 +142,9 @@ class QuadLogdet(torch.autograd.Function):
     A^-1 = L^-T L^-1 from ONE n-RHS triangular solve and one GEMM.
     A failed factor (NaN, ops.chol) gives a NaN value and a NaN
     gradient; nothing raises, so the optimizers reject the step. Both
-    passes carry a profiler range named after them."""
+    passes carry a profiler range named after them, and inside the
+    backward's the solve and the GEMM carry "QuadLogdet.linv" and
+    "QuadLogdet.ainv"."""
 
     @staticmethod
     @record_function("QuadLogdet.forward")
@@ -162,10 +164,12 @@ class QuadLogdet(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
             with highest_precision():
-                Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
-                                                     upper=False)
+                with record_function("QuadLogdet.linv"):
+                    Linv = torch.linalg.solve_triangular(
+                        L, eye.expand_as(L), upper=False)
                 del eye
-                grad_A = Linv.mT @ Linv
+                with record_function("QuadLogdet.ainv"):
+                    grad_A = Linv.mT @ Linv
             del Linv
             if grad_A.dim() == 2:
                 grad_A.addr_(alpha, alpha, alpha=-1.0)

@@ -6,9 +6,10 @@ gp_ss_ak_tpu/optim/api.py.
 The objective is a function of the flat hyper vector; its gradient is
 torch autograd of the exact NLML (the QW closed-form adjoint by
 default). Optimizer names mirror the CLI ("LBFGS", "BFGS", "SCG",
-gp_ss_ak.cpp:286-293). The objective runs on the device and in the
-dtype of the model's parameters; one host read per evaluation brings
-back the value and the gradient.
+gp_ss_ak.cpp:286-293). The dense objective runs on the device in
+float64 (`OBJECTIVE_DTYPE`) whatever the model's dtype, and hands its
+value and gradient to the host optimizer in float64; one host read per
+evaluation brings them back. The matrix-free engines run in float32.
 
 `optimizer="JIT"` (also "LBFGS-JIT", "DEVICE"; the CLI's `-o JIT`) runs
 the batched L-BFGS of optim/batched_lbfgs.py on one problem: the JAX
@@ -132,15 +133,18 @@ def batched_value_and_grad(f, X: torch.Tensor, y: torch.Tensor):
     return vg
 
 
-#: the arithmetic of the batched fit's objective, whatever the model's
-#: dtype. In float32 the NLML's gradient at 256 deposits x 1024
+#: the arithmetic of the dense and the batched fits' objective, whatever
+#: the model's dtype. In float32 the NLML's gradient at 256 deposits x 1024
 #: composites, once a fit has taken sn2 below ~1e-3, was off the exact
 #: float64 one by a median 0.039 and up to 30.6 of its scale: no better
 #: than TF32 products (median 0.235), and still up to 0.54 with the Gram,
 #: the factor and the QW adjoint in float64 and only the Gram's backward
 #: in float32. In float64: up to 1.6e-4, at 99.9 ms an evaluation
 #: against float32's 69.7 (NVIDIA H100 80GB HBM3, 700 W;
-#: PERF.md, ens256-fit).
+#: PERF.md, ens256-fit). At one problem of 16384 points the float32
+#: gradient was off by up to 51.3 of its scale at the points L-BFGS-B
+#: reaches mid-fit (sn2 ~ 3e-3-7e-3), float64 by 9.7e-10 (PERF.md,
+#: dense16k-fit).
 OBJECTIVE_DTYPE = torch.float64
 
 
@@ -178,23 +182,26 @@ def minimize_batched(model: GPModel, X, y, maxiter: int,
                                   lb, ub, maxiter=maxiter, hook=hook)
 
 
-def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0,
-                        dtype=None):
+def make_value_and_grad(model: GPModel, X, y, jitter: float = 0.0):
     """Host-callable value_and_grad(flat numpy) -> (float, float64 grad)
-    of the dense NLML, on the model's device (and dtype unless given)."""
-    flat0 = model.pack()
-    dtype = dtype or flat0.dtype
-    device = flat0.device
-    Xd = torch.as_tensor(X, dtype=dtype, device=device)
-    yd = torch.as_tensor(y, dtype=dtype, device=device)
+    of the dense NLML on the model's device, evaluated in
+    `OBJECTIVE_DTYPE` (float64) whatever the model's dtype: the data go
+    to it as given, the point as the optimizer holds it, and the value
+    and the gradient come back in float64. Each evaluation is a profiler
+    range, "dense_fit.value_and_grad"."""
+    device = model.pack().device
+    Xd = torch.as_tensor(X, dtype=OBJECTIVE_DTYPE, device=device)
+    yd = torch.as_tensor(y, dtype=OBJECTIVE_DTYPE, device=device)
     f = flat_nlml_fn(model, jitter)
 
     def value_and_grad(x_np: np.ndarray):
-        flat = torch.tensor(np.asarray(x_np, np.float64), dtype=dtype,
-                            device=device, requires_grad=True)
-        val = f(flat, Xd, yd)
-        (grad,) = torch.autograd.grad(val, flat)
-        out = torch.cat([val.detach().reshape(1), grad]).cpu()
+        with record_function("dense_fit.value_and_grad"):
+            flat = torch.tensor(np.asarray(x_np, np.float64),
+                                dtype=Xd.dtype, device=device,
+                                requires_grad=True)
+            val = f(flat, Xd, yd)
+            (grad,) = torch.autograd.grad(val, flat)
+            out = torch.cat([val.detach().reshape(1), grad]).cpu()
         return float(out[0]), out[1:].numpy().astype(np.float64)
 
     return value_and_grad
@@ -216,16 +223,21 @@ def resolve_engine(engine: str, n_data: int, model: GPModel) -> str:
 
 
 class _TimedVGrad:
-    """Wall-clock wrap that stays transparent: unknown attribute reads
-    (last_cg_iters, last_rel_residual, cg_tol, precond_rank) forward to
-    the inner closure. Each evaluation ends in a host read of its value,
-    so the device work is done when the clock stops."""
+    """The fit's closure: a wall-clock wrap that stays transparent
+    (unknown attribute reads, last_cg_iters, last_rel_residual, cg_tol,
+    precond_rank, forward to the inner closure) and keeps the fit's
+    record: each evaluation's span and its (point, value, gradient), and
+    each iteration's count of evaluations (`end_iteration`; the first's
+    includes the start's). Each evaluation ends in a host read of its
+    value, so the device work is done when the clock stops."""
 
-    def __init__(self, inner, walls, spans, cg):
+    def __init__(self, inner, walls, spans, cg, evals, per_iter):
         self.inner = inner
         self._walls = walls
         self._spans = spans
         self._cg = cg
+        self._evals = evals
+        self._per_iter = per_iter
 
     def __call__(self, x):
         t0 = time.perf_counter()
@@ -233,10 +245,15 @@ class _TimedVGrad:
         t1 = time.perf_counter()
         self._walls.append(t1 - t0)
         self._spans.append((t0, t1))
+        self._evals.append((np.array(x, np.float64), out[0],
+                            np.array(out[1], np.float64)))
         if getattr(self.inner, "last_cg_iters", None) is not None:
             self._cg.append((self.inner.last_cg_iters,
                              self.inner.last_rel_residual))
         return out
+
+    def end_iteration(self):
+        self._per_iter.append(len(self._walls) - sum(self._per_iter))
 
     def __getattr__(self, name):  # missing attrs only
         return getattr(self.__dict__["inner"], name)
@@ -264,7 +281,8 @@ def fit(
     """Maximize the marginal likelihood over the box [1e-4, 6]^p, on the
     device of the model's parameters.
 
-    `engine`: "dense" (exact Cholesky NLML, inference/gaussian.py),
+    `engine`: "dense" (exact Cholesky NLML, inference/gaussian.py,
+    evaluated in float64 whatever the model's dtype: `make_value_and_grad`),
     "iterative" (matrix-free CG + SLQ, optim/iterative_fit.py; flagship
     model only, float32), or "auto" (`resolve_engine`).
     `engine_opts` go to make_iterative_value_and_grad; with
@@ -283,10 +301,14 @@ def fit(
     Pass a dict as `timing` to receive {"backend_touch_s", "eval_s"
     (list), "eval_spans", "n_evals", "eval_s_sum", "eval_s_first",
     "eval_s_steady_median", "pre_first_eval_s", "post_last_eval_s",
-    "unconverged_evals", "max_rel_residual"}, and for the iterative
-    engine "cg": (CG iterations, achieved relative residual) per
-    evaluation. An iterative fit with evaluations whose CG ended above
-    its cg_tol warns once, an UnconvergedSolveWarning naming their
+    "unconverged_evals", "max_rel_residual", "evals" (each evaluation's
+    (point, value, gradient), as the optimizer saw it), "evals_per_iter"
+    (each iteration's evaluations, the start's counted in the first's)},
+    and for the iterative engine "cg": (CG iterations, achieved relative
+    residual) per evaluation. "eval_s", "eval_spans", "evals" and
+    "evals_per_iter" fill as the fit runs, so a `callback` may read
+    them. An iterative fit with evaluations whose CG ended above its
+    cg_tol warns once, an UnconvergedSolveWarning naming their
     count, the largest relative residual and the cg_tol (a failed solve
     made its evaluation NaN, which the optimizer rejected); the stop
     reason is the optimizer's, as in the JAX package.
@@ -356,15 +378,24 @@ def fit(
     walls: list = []
     spans: list = []
     cg: list = []
-    vgrad = _TimedVGrad(vgrad, walls, spans, cg)
+    evals: list = []
+    per_iter: list = []
+    vgrad = _TimedVGrad(vgrad, walls, spans, cg, evals, per_iter)
     if timing is not None:
         timing["eval_s"] = walls
         timing["eval_spans"] = spans
+        timing["evals"] = evals
+        timing["evals_per_iter"] = per_iter
         if eng == "iterative":
             timing["cg"] = cg
 
+    def iteration_end(it, x, f):
+        vgrad.end_iteration()
+        if callback is not None:
+            callback(it, x, f)
+
     opt = host_optimizer(name, iters, verbose, **(opt_opts or {}))
-    res = opt.minimize(vgrad, x0, lb, ub, callback=callback)
+    res = opt.minimize(vgrad, x0, lb, ub, callback=iteration_end)
     tol = getattr(vgrad, "cg_tol", None)
     n_bad, max_rel = solve_summary([r for _, r in cg], tol or 0.0)
     if n_bad:
